@@ -1,22 +1,40 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path once on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's main paths once on one NVIDIA GPU.
 
-The main path is batched syndrome BP on the HQC-128 attack code
+Path 1 is batched syndrome BP on the HQC-128 attack code
 [circulant(17669, 20) | I] (35,338 columns): the FER step at batch 4096,
 error rate 0.01, up to 30 product-sum iterations, and the decoder API.
+Path 2 is q-ary min-sum decoding: the q-ary FER simulation on
+DecoderN450R150V3C7B1 (regular (3,6) code with identity, B = 1) and the
+reference's "medium decoder" (N = 450, R = 150, DV = 3, DC = 7, B = 7,
+10 iterations) at batch 4096.
 
 Phases (each prints one line; any failure exits non-zero):
-  1. build the CUDA kernels from csrc/ and the HQC-128 code (seed 0);
+  1. build the CUDA kernels from csrc/ (one nvcc per source, in parallel)
+     and the HQC-128 code (seed 0);
   2. K2 (circulant_bp_cuda) against its plain PyTorch version on the card:
      512 frames, product-sum and min-sum, decisions and flags equal;
   3. K1 (circulant_fer_cuda) against its plain version: 512 frames at error
      rates 0.01 (flags equal) and 0.05 (success counts within 2% of the
      frames: f32 sums run in another order, which can flip a frame near
      the decoding threshold);
-  4. the main path through the public API, with the kernels' launch counts
-     reset before and read after: fer_simulation at batch 4096 (frames/s
-     best of 3 after a warm-up, success rate >= 0.999) and
-     CirculantBPDecoder.decode_received on 4096 device-sampled frames.
+  4. path 1 through the public API, with the kernels' launch counts reset
+     before and read after: fer_simulation at batch 4096 (frames/s best of
+     3 after a warm-up, success rate >= 0.999) and
+     CirculantBPDecoder.decode_received on 4096 device-sampled frames;
+  5. K5 (chain_exclusive_cuda) against its plain version, bitwise, at the
+     medium decoder's shapes [512, 150, 7, 15] and with an extra operand at
+     Kyber-like shapes [512, 512, 6, 5] + [512, 512, 25];
+  6. K6 (qary_min_sum_fused_cuda) against the plain decode on the medium
+     decoder: 512 frames of Dirichlet channels, 10 iterations, hard
+     decisions equal on every frame;
+  7. path 2 through the public API, with the launch counts reset before and
+     read after: simulate_frame_error_rate_qary on DecoderN450R150V3C7B1
+     (seed 1, rate 0.005, 5 iterations, 4 x 4096 frames, backend "fused",
+     the same triple as backend "plain" on the same device-sampled frames),
+     and QaryDecoder.min_sum_llr on the medium decoder at batch 4096 for
+     the backends fused, chain and plain (frames/s best of 3 after a
+     warm-up; every frame decodes to the all-zero word).
 
 Then one JSON line of per-kernel results, and as the last line
 {"ok": true, "device": {...}}.  Run from the repository root:
@@ -28,6 +46,7 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -35,6 +54,9 @@ import torch
 N, W, ERR, MAX_ITER = 17669, 20, 0.01, 30
 CMP_FRAMES = 512
 BATCH, BATCHES = 4096, 5
+SOURCES = ("circulant_bp", "qary_min_sum")
+QB, QITER = 7, 10  # medium decoder: B, iterations
+FER_B, FER_RATE, FER_ITER, FER_BATCHES = 1, 0.005, 5, 4
 
 
 def _card():
@@ -57,6 +79,29 @@ def _ms(fn, repeats=3):
         torch.cuda.synchronize()
         best = min(best, start.elapsed_time(end))
     return best
+
+
+def _ptxas(lib_path):
+    return [ln.strip() for ln in lib_path.with_suffix(".log").read_text().splitlines()
+            if "registers" in ln or "spill" in ln]
+
+
+def _bitwise_equal(a, b):
+    return a.shape == b.shape and bool(torch.equal(a.contiguous().view(torch.int32), b.contiguous().view(torch.int32)))
+
+
+def _best_s(fn, repeats=3):
+    """Best-of-``repeats`` wall time of ``fn()`` in s, synchronised, after a warm-up;
+    returns (seconds, last result)."""
+    out = fn()
+    best = float("inf")
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        best = min(best, time.perf_counter() - t0)
+    return best, out
 
 
 def _errors(rng, frames, rate):
@@ -90,16 +135,18 @@ def main():
 
     # ---- phase 1: build and code
     t0 = time.perf_counter()
-    lib_path = _build.build("circulant_bp")
-    _build.load("circulant_bp")
+    with ThreadPoolExecutor(len(SOURCES)) as pool:
+        lib_paths = dict(zip(SOURCES, pool.map(_build.build, SOURCES)))
+    for name in SOURCES:
+        _build.load(name)
     build_s = time.perf_counter() - t0
-    ptxas = [ln.strip() for ln in lib_path.with_suffix(".log").read_text().splitlines()
-             if "registers" in ln or "spill" in ln]
+    lib_path = lib_paths["circulant_bp"]
+    ptxas = _ptxas(lib_path)
     first_row = random_circulant_first_row(N, W, make_random_state(0))
     lay = CirculantLayout.from_first_row(first_row, with_identity=True)
     if lay.n != N or lay.weight != W:
         raise SystemExit(f"HQC-128 code has n={lay.n} w={lay.weight}")
-    print(f"phase 1 build+code: built {lib_path.name} in {build_s:.1f} s; HQC-128 code "
+    print(f"phase 1 build+code: built {', '.join(p.name for p in lib_paths.values())} in {build_s:.1f} s; HQC-128 code "
           f"N={lay.n} w={lay.weight} n_vars={lay.n_vars}; ptxas: {' | '.join(ptxas)}")
 
     rng = np.random.RandomState(1234)
@@ -203,6 +250,8 @@ def main():
     print(f"phase 4 plain FER step at batch {CMP_FRAMES}: {CMP_FRAMES / plain_s:.1f} frames/s; "
           f"kernel fer_simulation at batch {BATCH}: {fps:.1f} frames/s {tag}")
 
+    qary = _qary_phases(dev, tag, lib_paths["qary_min_sum"])
+
     src = "sca_ldpc_tpu_torch/csrc/circulant_bp.cu"
     print(json.dumps({"kernels": [
         {"name": "circulant_fer_cuda", "route": "cuda", "source": src,
@@ -213,10 +262,139 @@ def main():
          "replaces": "sca_ldpc_tpu/ops/kernels/circulant_pallas.py:190",
          "launches": launches["circulant_bp_cuda"], "max_abs_err": k2_err,
          "ms": results["bp_ms"], "plain_ms": results["bp_plain_ms"]},
+        *qary,
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0
+
+
+def _medium_code():
+    from sca_ldpc_tpu_torch.codes import make_regular_ldpc_parity_check_matrix_identity
+    from sca_ldpc_tpu_torch.utils import make_random_state
+
+    rng = make_random_state(1)
+    return make_regular_ldpc_parity_check_matrix_identity(300, 150, 3, 6, rng).astype(np.int8), rng
+
+
+def _qary_phases(dev, tag, lib_path):
+    """Phases 5-7; returns the q-ary kernels' entries of the JSON line."""
+    from sca_ldpc_tpu_torch.channels import probs_to_llr
+    from sca_ldpc_tpu_torch.ops import QaryDecoder, decoder_name_for
+    from sca_ldpc_tpu_torch.ops import minplus
+    from sca_ldpc_tpu_torch.ops.kernels.qary_cuda import (
+        chain_exclusive_cuda,
+        chain_exclusive_plain,
+        qary_min_sum_fused_cuda,
+        qary_min_sum_fused_plain,
+    )
+    from sca_ldpc_tpu_torch.sim import simulate_frame_error_rate_qary
+
+    rng = np.random.RandomState(4321)
+    q = 2 * QB + 1
+    H, _ = _medium_code()
+
+    # ---- phase 5: K5 against its plain version, bitwise
+    print(f"phase 5 build: {lib_path.name}; ptxas: {' | '.join(_ptxas(lib_path))}")
+    k5 = {}
+    dc = 7
+    v2c = (rng.rand(CMP_FRAMES, 150, dc, q) * 20).astype(np.float32)
+    v2c[rng.rand(*v2c.shape) < 0.1] = minplus.BIG
+    v2c = torch.from_numpy(v2c).to(dev)
+    sw, b2 = 6, 2
+    se = sw * b2
+    v2c2 = torch.from_numpy((rng.rand(CMP_FRAMES, 512, sw, 2 * b2 + 1) * 20).astype(np.float32)).to(dev)
+    extra = torch.from_numpy((rng.rand(CMP_FRAMES, 512, 2 * se + 1) * 20).astype(np.float32)).to(dev)
+    for label, args in (("medium", (v2c, (dc - 1) * QB, QB)),
+                        ("extra", (v2c2, (2 * sw - 1) * b2, b2, extra))):
+        out_k = chain_exclusive_cuda(*args)
+        out_p = chain_exclusive_plain(*args)
+        torch.cuda.synchronize()
+        same = _bitwise_equal(out_k, out_p)
+        err = float((out_k - out_p).abs().max())
+        ms = _ms(lambda: chain_exclusive_cuda(*args))
+        plain_ms = _ms(lambda: chain_exclusive_plain(*args))
+        k5[label] = (err, ms, plain_ms)
+        print(f"phase 5 K5 {label} {tuple(args[0].shape)}"
+              f"{' + ' + str(tuple(extra.shape)) if label == 'extra' else ''}: kernel==plain bitwise: {same}; "
+              f"max_abs_err {err}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms {tag}")
+        if not same:
+            raise SystemExit(f"K5 {label}: kernel and plain version disagree")
+    if chain_exclusive_cuda.launches <= 0:
+        raise SystemExit("K5 never launched")
+
+    # ---- phase 6: K6 against the plain decode on the medium decoder
+    dec = QaryDecoder(H, QB, QITER, backend="fused", device=dev)
+    probs = rng.dirichlet(np.ones(q), size=(CMP_FRAMES, H.shape[1])).astype(np.float32)
+    llr = minplus.clip_inf(probs_to_llr(torch.from_numpy(probs).to(dev))).contiguous()
+    k6_args = (llr, *dec._args, QB, QITER)
+    hard_k = qary_min_sum_fused_cuda(*k6_args)
+    hard_p = qary_min_sum_fused_plain(*k6_args)
+    torch.cuda.synchronize()
+    differ = int((hard_k != hard_p).any(dim=-1).sum())
+    k6_err = int((hard_k - hard_p).abs().max())
+    k6_ms = _ms(lambda: qary_min_sum_fused_cuda(*k6_args))
+    k6_plain_ms = _ms(lambda: qary_min_sum_fused_plain(*k6_args))
+    print(f"phase 6 K6 medium decoder, {CMP_FRAMES} Dirichlet frames, {QITER} iterations: hard decisions "
+          f"differ on {differ} frames; kernel {k6_ms:.3f} ms, plain {k6_plain_ms:.3f} ms {tag}")
+    if differ:
+        raise SystemExit("K6: hard decisions differ from the plain version")
+
+    # ---- phase 7: path 2 through the public API
+    torch.cuda.synchronize()
+    chain_exclusive_cuda.launches = 0
+    qary_min_sum_fused_cuda.launches = 0
+    H1, rng1 = _medium_code()
+    name = decoder_name_for(H1, FER_B)
+    runs = FER_BATCHES * BATCH
+    t0 = time.perf_counter()
+    fer = simulate_frame_error_rate_qary(H1, FER_B, FER_RATE, runs, rng1, iterations=FER_ITER,
+                                         batch_size=BATCH, backend="fused", device=dev)
+    fer_s = time.perf_counter() - t0
+    H1p, rng1p = _medium_code()
+    fer_plain = simulate_frame_error_rate_qary(H1p, FER_B, FER_RATE, runs, rng1p, iterations=FER_ITER,
+                                               batch_size=BATCH, backend="plain", device=dev)
+    print(f"phase 7 q-ary FER {name}: rate {FER_RATE}, {FER_ITER} iterations, {runs} frames: "
+          f"(successes, max_errs_success, min_errs_fail) fused {fer} in {fer_s:.2f} s, plain {fer_plain} {tag}")
+    if fer != fer_plain:
+        raise SystemExit("q-ary FER: the fused backend and the plain backend disagree on the same frames")
+    if not 0 < fer[0] < runs:
+        raise SystemExit(f"q-ary FER: {fer[0]} successes of {runs} is outside (0, {runs})")
+
+    channel = np.zeros((BATCH, H.shape[1], q), np.float32)
+    channel[:, :, QB] = 1.0
+    channel[:, 1, QB] = 0.1
+    channel[:, 1, q - 1] = 0.9
+    llr_m = minplus.clip_inf(probs_to_llr(torch.from_numpy(channel).to(dev))).contiguous()
+    fps = {}
+    for backend in ("fused", "chain", "plain"):
+        dec_b = QaryDecoder(H, QB, QITER, backend=backend, device=dev)
+        best, hard = _best_s(lambda: dec_b.min_sum_llr(llr_m))
+        zero = int((hard == 0).all(dim=-1).sum())
+        fps[backend] = BATCH / best
+        print(f"phase 7 medium decoder backend {backend}: {fps[backend]:.1f} frames/s at batch {BATCH} "
+              f"(best of 3); all-zero {zero}/{BATCH} {tag}")
+        if zero != BATCH:
+            raise SystemExit(f"medium decoder backend {backend}: {BATCH - zero} frames not all-zero")
+    torch.cuda.synchronize()
+    launches = {"chain_exclusive_cuda": chain_exclusive_cuda.launches,
+                "qary_min_sum_fused_cuda": qary_min_sum_fused_cuda.launches}
+    print(f"phase 7 launches {launches}")
+    if min(launches.values()) <= 0:
+        raise SystemExit(f"a kernel of the q-ary path was not launched: {launches}")
+
+    src = "sca_ldpc_tpu_torch/csrc/qary_min_sum.cu"
+    return [
+        {"name": "chain_exclusive_cuda", "route": "cuda", "source": src,
+         "replaces": "sca_ldpc_tpu/ops/kernels/qary_pallas.py:104",
+         "launches": launches["chain_exclusive_cuda"],
+         "max_abs_err": max(k5["medium"][0], k5["extra"][0]),
+         "ms": k5["medium"][1], "plain_ms": k5["medium"][2]},
+        {"name": "qary_min_sum_fused_cuda", "route": "cuda", "source": src,
+         "replaces": "sca_ldpc_tpu/ops/kernels/qary_pallas.py:264",
+         "launches": launches["qary_min_sum_fused_cuda"], "max_abs_err": k6_err,
+         "ms": k6_ms, "plain_ms": k6_plain_ms},
+    ]
 
 
 if __name__ == "__main__":

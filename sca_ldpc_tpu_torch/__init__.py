@@ -4,13 +4,21 @@ for code-based key-recovery side-channel attack simulation, on NVIDIA GPUs.
 A second package beside the JAX package ``sca_ldpc_tpu``, which stays the
 reference; module paths mirror it.  Ported so far:
 
-- ``codes``:    the distance-spectrum-constrained random circulant and its
-                :class:`~sca_ldpc_tpu_torch.codes.layout.CirculantLayout`
+- ``codes``:    the regular, quasi-cyclic and q-ary QC constructors, the
+                distance-spectrum-constrained random circulant, and the
+                layouts :class:`~sca_ldpc_tpu_torch.codes.layout.CodeLayout`
+                and :class:`~sca_ldpc_tpu_torch.codes.layout.CirculantLayout`
+- ``channels``: probability -> LLR conversions
 - ``utils``:    seeding (``numpy.random.RandomState``, ``torch.Generator``)
 - ``ops``:      :class:`~sca_ldpc_tpu_torch.ops.circulant_bp.CirculantBPDecoder`,
                 syndrome BP on ``[circulant | I]`` codes, with a hand-written
-                CUDA kernel (``csrc/circulant_bp.cu``) on the GPU
-- ``parallel``: the single-device frame-error-rate step and loop
+                CUDA kernel (``csrc/circulant_bp.cu``) on the GPU;
+                :class:`~sca_ldpc_tpu_torch.ops.qary.QaryDecoder`, q-ary
+                min-sum with the min-plus chain (``ops/minplus.py``) and two
+                hand-written CUDA kernels (``csrc/qary_min_sum.cu``); the
+                decoder-name registry
+- ``parallel``: the single-device binary frame-error-rate step and loop
+- ``sim``:      the q-ary frame-error-rate simulation
 """
 
 __version__ = "0.1.0"

@@ -1,0 +1,344 @@
+// Q-ary min-sum decoding over symbols [-B..B] (Q = 2B+1), for Hopper (sm_90a).
+//
+// Replaces the Pallas TPU kernels in sca_ldpc_tpu/ops/kernels/qary_pallas.py:
+//   chain_exclusive_pallas (K5, body _make_check_kernel) -> qary_chain_exclusive()
+//   qary_min_sum_fused     (K6, body _make_fused_kernel) -> qary_min_sum_fused()
+// and computes what the port's plain versions compute:
+// ops/minplus.py chain_exclusive and ops/qary.py _qary_min_sum.
+//
+// Exactness.  A min-plus convolution output is a min over terms a[i] + b[j],
+// each one f32 add; min is exact and order-free, so any evaluation order gives
+// the same bits as long as the set of terms is the same.  conv_warp() keeps
+// minplus.conv's term set exactly: the same operand swap on the declared half
+// supports, the same loop window, BIG for b-indices outside b's support, and
+// the final min with BIG; chain_check() keeps chain_exclusive's caps.  K6 sums
+// a variable's DV incoming messages in the plain version's order,
+// channel + ((c_0 + c_1) + c_2), so its totals and hard decisions are bitwise
+// those of the plain version too.
+//
+// K5 design: one warp per (frame, check), lanes over output symbols; the
+// check's DC inputs, its prefix/suffix partial convolutions (stored at their
+// capped supports) and the extra operand live in the warp's slice of shared
+// memory (at B = 7, DC = 7: 455 floats, 1.8 KB).  Bound on the H100: at the
+// medium decoder's shapes one check update reads and writes about 63 KB per
+// frame and iteration (0.5 GB per iteration at batch 4096), about 6,800
+// add+min pairs a check, so it is bound by bytes about as much as by
+// instruction throughput; lanes idle where an output window is narrower
+// than 32.  Measured on an H100 80GB HBM3 at 700 W: 4.0 ms for
+// [4096, 150, 7, 15], 1.0e12 pairs/s, 22x the time a copy of the same bytes
+// takes: instruction-bound, each term costing two shared-memory loads.
+//
+// K6 design: one block per frame runs every iteration.  v2c [R, DC, Q] (the
+// same buffer holds c2v after the check update, as the TPU kernel's VMEM
+// scratch does) and tot [N, Q] stay in dynamic shared memory (90 KB at the
+// medium decoder), so device memory sees only the channel and the decisions.
+// Per iteration, with __syncthreads() between the sweeps:
+//   check sweep     one warp per check: the K5 chain, written in place and
+//                   reversed as c2v = min(ext[-d], BIG);
+//   variable sweep  over (variable, symbol): tot = channel + sum of the
+//                   unsigned c2v, gathered through var_flat;
+//   edge sweep      one thread per edge: v2c = signed(tot[var]) - c2v, minus
+//                   its own minimum, min BIG; pad slots the delta identity.
+// The TPU kernel's one-hot matmuls are index gathers here, GF sign reversal
+// and pad masking are selects.  Bound on the H100: instruction throughput —
+// about 1.0e6 add+min pairs per frame-iteration in the check sweep, 4.2e10
+// for a 4096-frame, 10-iteration decode, about 2.5 ms at 132 SMs x 128 lanes
+// x 1.98 GHz; the block's 101 KB of shared memory allow 2 blocks per SM.
+// Measured on an H100 80GB HBM3 at 700 W: 44 ms for 4096 frames and
+// 10 iterations, 4.3 ms an iteration of which the check sweep is about 93%.
+
+#include <cmath>
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr float kBig = 1e15f;  // ops/minplus.py BIG as f32
+constexpr int kWarps = 8;
+constexpr int kThreads = kWarps * 32;
+constexpr long long kMaxSmem = 232448;  // dynamic shared memory a block may use
+
+// Stored support of a partial conv of `count` operands (minplus.chain_exclusive cap()).
+__host__ __device__ inline int cap_of(int count, int d, int b_sup, int s_pre, int s_mid) {
+  int c = count * b_sup;
+  const int x = s_pre + (d - 1 - count) * b_sup;
+  c = c < x ? c : x;
+  return c < s_mid ? c : s_mid;
+}
+
+// The partial convs of 0, 1, ... operands are stored back to back: offset of
+// the one of `count` operands (count = d: the floats of all d of them).
+__host__ __device__ inline int partial_offset(int count, int d, int b_sup, int s_pre, int s_mid) {
+  int f = 0;
+  for (int c = 0; c < count; ++c) f += 2 * cap_of(c, d, b_sup, s_pre, s_mid) + 1;
+  return f;
+}
+
+// Warp-cooperative centered min-plus convolution with minplus.conv's term set:
+// a [2sa+1], b [2sb+1], declared half supports ha, hb -> out[k * step],
+// k in [0, 2 s_out]; step -1 with out at the last element writes reversed.
+__device__ void conv_warp(const float* a, int sa, int ha, const float* b, int sb, int hb, int s_out,
+                          float* out, int step, int lane) {
+  ha = ha < sa ? ha : sa;
+  hb = hb < sb ? hb : sb;
+  if (hb < ha) {
+    const float* t = a;
+    a = b;
+    b = t;
+    int s = sa;
+    sa = sb;
+    sb = s;
+    s = ha;
+    ha = hb;
+    hb = s;
+  }
+  const int w_out = 2 * s_out + 1;
+  const int off = sa + sb - s_out;
+  const int wb = 2 * sb + 1;
+  for (int k = lane; k < w_out; k += 32) {
+    float acc = INFINITY;
+    for (int i = sa - ha; i <= sa + ha; ++i) {
+      const int j = off - i + k;
+      const float bv = (j >= 0 && j < wb) ? b[j] : kBig;
+      acc = fminf(acc, a[i] + bv);
+    }
+    out[k * step] = fminf(acc, kBig);
+  }
+}
+
+// chain_exclusive for one check, by one warp.  in: d operands of width q
+// (stride q); extra: [2se+1] or nullptr; scratch: 2 * partial_offset(d, d, ...) floats
+// (+ 2*s_pre+1 with extra).  Slot j's output goes to dst + j*q_dst (reversed
+// when `reverse`, as c2v); dst may alias in.
+__device__ void chain_check(const float* in, int d, int q, int s_mid, int s_out, const float* extra, int se,
+                            float* scratch, float* dst, int q_dst, bool reverse, int lane) {
+  const int b_sup = (q - 1) / 2;
+  const int s_pre = s_out + se;
+  const int pf = partial_offset(d, d, b_sup, s_pre, s_mid);
+  float* pre = scratch;  // prefix[c]: conv of operands 0..c-1
+  float* suf = pre + pf;  // suffix by count: conv of the last `count` operands
+  float* tmp = suf + pf;  // combine output before the extra conv
+  if (lane == 0) {
+    pre[0] = 0.0f;
+    suf[0] = 0.0f;
+  }
+  __syncwarp();
+  int off_c = 0;  // offset of the partial of c operands
+  for (int j = 0; j < d - 1; ++j) {
+    const int cj = cap_of(j, d, b_sup, s_pre, s_mid);
+    const int off_n = off_c + 2 * cj + 1;
+    conv_warp(in + j * q, b_sup, b_sup, pre + off_c, cj, j * b_sup, cap_of(j + 1, d, b_sup, s_pre, s_mid),
+              pre + off_n, 1, lane);
+    __syncwarp();
+    off_c = off_n;
+  }
+  off_c = 0;
+  for (int j = d - 1; j >= 1; --j) {
+    const int count = d - j;
+    const int cp = cap_of(count - 1, d, b_sup, s_pre, s_mid);
+    const int off_n = off_c + 2 * cp + 1;
+    conv_warp(in + j * q, b_sup, b_sup, suf + off_c, cp, (count - 1) * b_sup,
+              cap_of(count, d, b_sup, s_pre, s_mid), suf + off_n, 1, lane);
+    __syncwarp();
+    off_c = off_n;
+  }
+  const int w_out = 2 * s_out + 1;
+  for (int j = 0; j < d; ++j) {
+    const int cnt_s = d - 1 - j;
+    const float* pj = pre + partial_offset(j, d, b_sup, s_pre, s_mid);
+    const float* sj = suf + partial_offset(cnt_s, d, b_sup, s_pre, s_mid);
+    float* out = dst + j * q_dst + (reverse ? w_out - 1 : 0);
+    const int step = reverse ? -1 : 1;
+    if (extra == nullptr) {
+      conv_warp(pj, cap_of(j, d, b_sup, s_pre, s_mid), j * b_sup, sj, cap_of(cnt_s, d, b_sup, s_pre, s_mid),
+                cnt_s * b_sup, s_pre, out, step, lane);
+    } else {
+      conv_warp(pj, cap_of(j, d, b_sup, s_pre, s_mid), j * b_sup, sj, cap_of(cnt_s, d, b_sup, s_pre, s_mid),
+                cnt_s * b_sup, s_pre, tmp, 1, lane);
+      __syncwarp();
+      conv_warp(extra, se, se, tmp, s_pre, s_pre, s_out, out, step, lane);
+      __syncwarp();
+    }
+  }
+  __syncwarp();
+}
+
+long long chain_warp_floats(int d, int q, int s_mid, int s_out, int we) {
+  const int se = we > 0 ? (we - 1) / 2 : 0;
+  const int s_pre = s_out + se;
+  long long f = static_cast<long long>(d) * q + 2LL * partial_offset(d, d, (q - 1) / 2, s_pre, s_mid);
+  if (we > 0) f += we + 2 * s_pre + 1;
+  return f;
+}
+
+long long fused_floats(int n, int r, int dc, int q) {
+  const int b_sup = (q - 1) / 2;
+  return static_cast<long long>(r) * dc * q + static_cast<long long>(n) * q +
+         2LL * kWarps * partial_offset(dc, dc, b_sup, b_sup, (dc - 1) * b_sup);
+}
+
+// K5: chain_exclusive over n_checks = Bt*R checks.  v2c [n_checks, d, q];
+// extra [n_checks, we] or nullptr; out [n_checks, d, 2 s_out + 1].
+__global__ void __launch_bounds__(kThreads)
+    chain_exclusive_kernel(const float* __restrict__ v2c, const float* __restrict__ extra, float* __restrict__ out,
+                           long long n_checks, int d, int q, int s_mid, int s_out, int we, int warp_floats) {
+  extern __shared__ float smem[];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  float* in = smem + static_cast<size_t>(warp) * warp_floats;
+  float* ex = in + d * q;
+  float* scratch = ex + (extra ? we : 0);
+  const int se = extra ? (we - 1) / 2 : 0;
+  const int w_out = 2 * s_out + 1;
+  const long long c = static_cast<long long>(blockIdx.x) * kWarps + warp;
+  if (c >= n_checks) return;
+  const float* src = v2c + static_cast<size_t>(c) * d * q;
+  for (int t = lane; t < d * q; t += 32) in[t] = src[t];
+  if (extra) {
+    const float* e = extra + static_cast<size_t>(c) * we;
+    for (int t = lane; t < we; t += 32) ex[t] = e[t];
+  }
+  __syncwarp();
+  chain_check(in, d, q, s_mid, s_out, extra ? ex : nullptr, se, scratch, out + static_cast<size_t>(c) * d * w_out,
+              w_out, false, lane);
+}
+
+// K6: the whole decode of one frame per block.
+__global__ void __launch_bounds__(kThreads)
+    qary_fused_kernel(const float* __restrict__ channel, const int* __restrict__ chk_var,
+                      const int* __restrict__ chk_sign, const int* __restrict__ chk_mask,
+                      const int* __restrict__ var_flat, int n, int r, int dc, int dv, int q, int max_iter,
+                      int* __restrict__ hard) {
+  extern __shared__ float smem[];
+  const int b_sup = (q - 1) / 2;
+  const int s_mid = (dc - 1) * b_sup;
+  const int edges = r * dc;
+  const int pf = partial_offset(dc, dc, b_sup, b_sup, s_mid);
+  float* v2c = smem;          // [R*DC, Q]; holds c2v between the check and edge sweeps
+  float* tot = v2c + edges * q;  // [N, Q]
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  float* scratch = tot + n * q + warp * 2 * pf;
+  const float* ch = channel + static_cast<size_t>(blockIdx.x) * n * q;
+
+  // Initial v2c: the signed channel on each edge, the delta identity on pads.
+  for (int idx = threadIdx.x; idx < edges * q; idx += kThreads) {
+    const int e = idx / q;
+    const int s = idx - e * q;
+    v2c[idx] = chk_mask[e] ? ch[chk_var[e] * q + (chk_sign[e] < 0 ? q - 1 - s : s)]
+                           : (s == b_sup ? 0.0f : kBig);
+  }
+  for (int idx = threadIdx.x; idx < n * q; idx += kThreads) tot[idx] = 0.0f;
+  __syncthreads();
+
+  for (int it = 0; it < max_iter; ++it) {
+    // ---- check sweep: c2v in place of v2c
+    for (int i = warp; i < r; i += kWarps) {
+      float* m = v2c + i * dc * q;
+      chain_check(m, dc, q, s_mid, b_sup, nullptr, 0, scratch, m, q, true, lane);
+    }
+    __syncthreads();
+
+    // ---- variable sweep: tot = channel + ((u_0 + u_1) + ...), pads add 0
+    for (int idx = threadIdx.x; idx < n * q; idx += kThreads) {
+      const int v = idx / q;
+      const int s = idx - v * q;
+      float acc = 0.0f;
+      for (int t = 0; t < dv; ++t) {
+        const int e = var_flat[v * dv + t];
+        float u = 0.0f;
+        if (e < edges) u = v2c[e * q + (chk_sign[e] < 0 ? q - 1 - s : s)];
+        acc = (t == 0) ? u : acc + u;
+      }
+      tot[idx] = ch[idx] + acc;
+    }
+    __syncthreads();
+
+    // ---- edge sweep: extrinsic, normalized v2c
+    for (int e = threadIdx.x; e < edges; e += kThreads) {
+      float* m = v2c + e * q;
+      if (!chk_mask[e]) {
+        for (int s = 0; s < q; ++s) m[s] = (s == b_sup) ? 0.0f : kBig;
+        continue;
+      }
+      const float* t = tot + chk_var[e] * q;
+      const bool neg = chk_sign[e] < 0;
+      float mn = INFINITY;
+      for (int s = 0; s < q; ++s) mn = fminf(mn, t[neg ? q - 1 - s : s] - m[s]);
+      for (int s = 0; s < q; ++s) m[s] = fminf((t[neg ? q - 1 - s : s] - m[s]) - mn, kBig);
+    }
+    __syncthreads();
+  }
+
+  // Hard decision: first-minimal symbol of the last totals, minus B.
+  int* h = hard + static_cast<size_t>(blockIdx.x) * n;
+  for (int v = threadIdx.x; v < n; v += kThreads) {
+    const float* t = tot + v * q;
+    float best = t[0];
+    int bi = 0;
+    for (int s = 1; s < q; ++s) {
+      if (t[s] < best) {
+        best = t[s];
+        bi = s;
+      }
+    }
+    h[v] = bi - b_sup;
+  }
+}
+
+}  // namespace
+
+// Dynamic shared memory of one K5 block (kWarps checks); we = 0 without extra.
+extern "C" long long qary_chain_smem_bytes(int d, int q, int s_mid, int s_out, int we) {
+  return kWarps * chain_warp_floats(d, q, s_mid, s_out, we) * static_cast<long long>(sizeof(float));
+}
+
+// Dynamic shared memory of one K6 block (one frame).
+extern "C" long long qary_fused_smem_bytes(int n, int r, int dc, int q) {
+  return fused_floats(n, r, dc, q) * static_cast<long long>(sizeof(float));
+}
+
+// K5 (replaces chain_exclusive_pallas).  v2c [n_checks, d, q] f32, extra
+// [n_checks, we] f32 or nullptr (we = 0), out [n_checks, d, 2 s_out + 1] f32.
+// Returns a cudaError_t.
+extern "C" int qary_chain_exclusive(const float* v2c, const float* extra, float* out, long long n_checks, int d,
+                                    int q, int s_mid, int s_out, int we, void* stream) {
+  if (d < 1 || q < 1 || q % 2 == 0 || s_mid < 0 || s_out < 0 || n_checks < 0 ||
+      (extra != nullptr) != (we > 0) || (we > 0 && we % 2 == 0)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const long long smem = qary_chain_smem_bytes(d, q, s_mid, s_out, we);
+  if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
+  if (n_checks == 0) return 0;
+  const long long blocks = (n_checks + kWarps - 1) / kWarps;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(chain_exclusive_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int warp_floats = static_cast<int>(chain_warp_floats(d, q, s_mid, s_out, we));
+  chain_exclusive_kernel<<<static_cast<unsigned>(blocks), kThreads, static_cast<size_t>(smem),
+                           static_cast<cudaStream_t>(stream)>>>(v2c, extra, out, n_checks, d, q, s_mid, s_out,
+                                                                we, warp_floats);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K6 (replaces qary_min_sum_fused).  channel [batch, n, q] f32 finite
+// min-sum LLRs; chk_var/chk_sign/chk_mask [r, dc] int32 and var_flat [n, dv]
+// int32 from CodeLayout (pads: chk_mask 0, var_flat r*dc); hard [batch, n]
+// int32 in [-B..B].  Returns a cudaError_t.
+extern "C" int qary_min_sum_fused(const float* channel, const int* chk_var, const int* chk_sign, const int* chk_mask,
+                                  const int* var_flat, int batch, int n, int r, int dc, int dv, int q, int max_iter,
+                                  int* hard, void* stream) {
+  if (batch < 0 || n < 1 || r < 1 || dc < 1 || dv < 1 || q < 1 || q % 2 == 0 || max_iter < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const long long smem = qary_fused_smem_bytes(n, r, dc, q);
+  if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
+  if (batch == 0) return 0;
+  cudaError_t err = cudaFuncSetAttribute(qary_fused_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  qary_fused_kernel<<<batch, kThreads, static_cast<size_t>(smem), static_cast<cudaStream_t>(stream)>>>(
+      channel, chk_var, chk_sign, chk_mask, var_flat, n, r, dc, dv, q, max_iter, hard);
+  return static_cast<int>(cudaGetLastError());
+}

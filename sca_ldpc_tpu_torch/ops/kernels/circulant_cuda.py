@@ -69,7 +69,7 @@ def _check_args(shifts, n, max_iter, method):
 
 def _cuda_stream(device):
     if device.type != "cuda":
-        raise ValueError(f"circulant kernels run on CUDA or (plain version) CPU tensors, not {device}")
+        raise ValueError(f"the kernels run on CUDA or (plain version) CPU tensors, not {device}")
     return torch.cuda.current_stream(device).cuda_stream
 
 

@@ -1,0 +1,158 @@
+"""The CUDA q-ary kernels (K5 chain_exclusive_cuda, K6 qary_min_sum_fused_cuda)
+against their plain PyTorch versions, on the card.  Without a CUDA device
+every test skips.  This file imports no JAX, so it runs on a machine without
+it:
+
+    python -m pytest --noconftest tests/test_torch_cuda_qary.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from sca_ldpc_tpu_torch.channels import probs_to_llr
+from sca_ldpc_tpu_torch.codes import (
+    make_qary_qc_parity_check_matrix,
+    make_regular_ldpc_parity_check_matrix_identity,
+)
+from sca_ldpc_tpu_torch.ops import QaryDecoder, minplus
+from sca_ldpc_tpu_torch.ops.kernels.qary_cuda import (
+    chain_exclusive_cuda,
+    chain_exclusive_plain,
+    qary_min_sum_fused_cuda,
+    qary_min_sum_fused_plain,
+)
+from sca_ldpc_tpu_torch.sim import simulate_frame_error_rate_qary
+
+pytestmark = pytest.mark.cuda
+TOY = np.array([[1, 1, 1, 1, 0, 0], [0, 0, 1, 1, 0, 1], [1, 0, 0, 1, 1, 0]], np.int8)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda:0")
+
+
+def _bits(x):
+    return x.contiguous().view(torch.int32)
+
+
+def _v2c(bt, r, dc, q, seed, device):
+    rng = np.random.RandomState(seed)
+    v = (rng.rand(bt, r, dc, q) * 20).astype(np.float32)
+    v[rng.rand(*v.shape) < 0.1] = minplus.BIG
+    v[rng.rand(*v.shape) < 0.05] *= -1  # negative entries make the padding terms matter
+    return torch.from_numpy(v).to(device)
+
+
+@pytest.mark.parametrize("bt,r,dc,q", [(13, 10, 7, 15), (5, 7, 4, 5), (3, 4, 1, 3), (9, 150, 7, 15)])
+def test_chain_kernel_bitwise_equals_plain(cuda, bt, r, dc, q):
+    b = (q - 1) // 2
+    v2c = _v2c(bt, r, dc, q, bt, cuda)
+    before = chain_exclusive_cuda.launches
+    out = chain_exclusive_cuda(v2c, (dc - 1) * b, b)
+    ref = chain_exclusive_plain(v2c, (dc - 1) * b, b)
+    torch.cuda.synchronize()
+    assert chain_exclusive_cuda.launches == before + 1
+    assert out.shape == (bt, r, dc, q) and torch.equal(_bits(out), _bits(ref))
+
+
+@pytest.mark.parametrize("bt", [11, 16])
+def test_chain_kernel_with_extra_bitwise_equals_plain(cuda, bt):
+    sw, b = 6, 2
+    se = sw * b
+    rng = np.random.RandomState(bt)
+    v2c = torch.from_numpy((rng.rand(bt, 10, sw, 2 * b + 1) * 20).astype(np.float32)).to(cuda)
+    extra = torch.from_numpy((rng.rand(bt, 10, 2 * se + 1) * 20).astype(np.float32)).to(cuda)
+    extra[:, :3, :5] = minplus.BIG
+    for s_out in (b, b + 1):
+        out = chain_exclusive_cuda(v2c, (2 * sw - 1) * b, s_out, extra)
+        ref = chain_exclusive_plain(v2c, (2 * sw - 1) * b, s_out, extra)
+        torch.cuda.synchronize()
+        assert out.shape == (bt, 10, sw, 2 * s_out + 1) and torch.equal(_bits(out), _bits(ref))
+
+
+def _fused_inputs(H, b, frames, seed, device):
+    dec = QaryDecoder(H, b, 1, backend="fused", device=device)
+    probs = np.random.RandomState(seed).dirichlet(np.ones(2 * b + 1), size=(frames, H.shape[1]))
+    probs[..., 0] = 0.0  # +inf LLRs, clipped to BIG
+    probs /= probs.sum(-1, keepdims=True)
+    llr = minplus.clip_inf(probs_to_llr(torch.from_numpy(probs.astype(np.float32)).to(device)))
+    return llr.contiguous(), dec._args
+
+
+def _codes():
+    return {
+        "medium": (make_regular_ldpc_parity_check_matrix_identity(300, 150, 3, 6, 1), 7),
+        "signed_qc": (make_qary_qc_parity_check_matrix(30, 4, 2, np.random.RandomState(3)), 2),
+        "toy": (TOY, 7),
+    }
+
+
+@pytest.mark.parametrize("code", ["medium", "signed_qc", "toy"])
+@pytest.mark.parametrize("max_iter", [0, 1, 10])
+def test_fused_kernel_hard_decisions_equal_plain(cuda, code, max_iter):
+    H, b = _codes()[code]
+    llr, args = _fused_inputs(H, b, 37, 5, cuda)
+    before = qary_min_sum_fused_cuda.launches
+    hard = qary_min_sum_fused_cuda(llr, *args, b, max_iter)
+    ref = qary_min_sum_fused_plain(llr, *args, b, max_iter)
+    torch.cuda.synchronize()
+    assert qary_min_sum_fused_cuda.launches == before + 1
+    assert hard.dtype == torch.int32 and hard.shape == (37, H.shape[1])
+    assert torch.equal(hard, ref)
+
+
+def test_decoder_backends_on_the_card(cuda):
+    H, b = _codes()["medium"]
+    llr, _ = _fused_inputs(H, b, 9, 6, cuda)
+    assert QaryDecoder(H, b, 5, device=cuda).backend == "fused"
+    assert QaryDecoder(H, b, 5, early_exit=True, device=cuda).backend == "chain"
+    ref = QaryDecoder(H, b, 5, backend="plain", device=cuda).min_sum_llr(llr)
+    for backend in ("chain", "fused"):
+        assert torch.equal(QaryDecoder(H, b, 5, backend=backend, device=cuda).min_sum_llr(llr), ref)
+    ee = QaryDecoder(H, b, 5, backend="plain", early_exit=True, device=cuda).min_sum_llr(llr)
+    assert torch.equal(QaryDecoder(H, b, 5, early_exit=True, device=cuda).min_sum_llr(llr), ee)
+
+
+def test_fer_fused_equals_plain_on_the_same_frames(cuda):
+    H = make_regular_ldpc_parity_check_matrix_identity(300, 150, 3, 6, 1)
+    runs = [simulate_frame_error_rate_qary(H, 1, 0.005, 300, 7, batch_size=128, backend=be, device=cuda)
+            for be in ("fused", "plain")]
+    assert runs[0] == runs[1] and runs[0][0] > 0
+
+
+def test_wrappers_raise_on_unsupported_inputs(cuda):
+    v2c = _v2c(4, 6, 7, 15, 0, cuda)
+    before = (chain_exclusive_cuda.launches, qary_min_sum_fused_cuda.launches)
+    with pytest.raises(ValueError):  # even Q
+        chain_exclusive_cuda(v2c[..., :14].contiguous(), 36, 7)
+    with pytest.raises(TypeError):
+        chain_exclusive_cuda(v2c.double(), 42, 7)
+    with pytest.raises(ValueError):
+        chain_exclusive_cuda(v2c.transpose(1, 2), 42, 7)
+    with pytest.raises(ValueError):  # extra on another device
+        chain_exclusive_cuda(v2c, 42, 7, torch.zeros((4, 6, 5)))
+    with pytest.raises(ValueError, match="shared memory"):
+        chain_exclusive_cuda(_v2c(1, 1, 7, 301, 0, cuda), 900, 150)
+
+    H, b = _codes()["medium"]
+    llr, args = _fused_inputs(H, b, 3, 1, cuda)
+    with pytest.raises(ValueError):  # Q != 2B+1
+        qary_min_sum_fused_cuda(llr, *args, b + 1, 5)
+    with pytest.raises(TypeError):
+        qary_min_sum_fused_cuda(llr.double(), *args, b, 5)
+    bad_var = args[0].clone()
+    bad_var[0, 0] = H.shape[1]
+    with pytest.raises(ValueError):
+        qary_min_sum_fused_cuda(llr, bad_var, *args[1:], b, 5)
+    big = make_regular_ldpc_parity_check_matrix_identity(3000, 1500, 3, 6, 1)
+    llr_big, args_big = _fused_inputs(big, b, 1, 1, cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        qary_min_sum_fused_cuda(llr_big, *args_big, b, 5)
+    assert (chain_exclusive_cuda.launches, qary_min_sum_fused_cuda.launches) == before
+    # the chain backend takes the code the fused kernel cannot hold
+    hard = QaryDecoder(big, b, 1, backend="chain", device=cuda).min_sum_llr(llr_big)
+    assert hard.shape == (1, big.shape[1])
