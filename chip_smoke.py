@@ -7,7 +7,10 @@ error rate 0.01, up to 30 product-sum iterations, and the decoder API.
 Path 2 is q-ary min-sum decoding: the q-ary FER simulation on
 DecoderN450R150V3C7B1 (regular (3,6) code with identity, B = 1) and the
 reference's "medium decoder" (N = 450, R = 150, DV = 3, DC = 7, B = 7,
-10 iterations) at batch 4096.
+10 iterations) at batch 4096.  Path 3 is the Kyber-768 attack: the
+two-alphabet decoder DecoderN1280R512SW6 (768 secret coefficients in
+[-2..2], 512 check sums in [-12..12], SW = 6, DV = 4) at batch 4096, and the
+fixed-pattern and adaptive attack simulations.
 
 Phases (each prints one line; any failure exits non-zero):
   1. build the CUDA kernels from csrc/ (one nvcc per source, in parallel)
@@ -34,7 +37,19 @@ Phases (each prints one line; any failure exits non-zero):
      the same triple as backend "plain" on the same device-sampled frames),
      and QaryDecoder.min_sum_llr on the medium decoder at batch 4096 for
      the backends fused, chain and plain (frames/s best of 3 after a
-     warm-up; every frame decodes to the all-zero word).
+     warm-up; every frame decodes to the all-zero word);
+  8. K7 (qary_special_min_sum_fused_cuda) against the plain decode on
+     DecoderN1280R512SW6: 512 frames of Dirichlet channels, 10 iterations,
+     B and sum decisions equal on every frame, at eta = 2 and at the
+     adaptive path's eta = 3 (QB = 7, QS = 37);
+  9. path 3 through the public API, with the launch counts reset before and
+     read after: QarySpecialDecoder.min_sum_llr at batch 4096, 10 iterations,
+     on bench.py's Kyber channel (B-symbol 0 at 0.92, the others 0.02, sums
+     certain at 0) for the backends fused, chain and plain (frames/s best of
+     3 after a warm-up; every frame decodes to the all-zero word);
+     simulate_kyber_attack (seed 7, accuracy 0.995, 2 runs) on the card,
+     equal to the same call on the CPU with >= 95% of coefficients right;
+     simulate_kyber_attack_adaptive (seed 0, eta = 3) with full recovery.
 
 Then one JSON line of per-kernel results, and as the last line
 {"ok": true, "device": {...}}.  Run from the repository root:
@@ -57,6 +72,7 @@ BATCH, BATCHES = 4096, 5
 SOURCES = ("circulant_bp", "qary_min_sum")
 QB, QITER = 7, 10  # medium decoder: B, iterations
 FER_B, FER_RATE, FER_ITER, FER_BATCHES = 1, 0.005, 5, 4
+KY_SW, KY_ITER = 6, 10  # Kyber-768 decoder: sum weight, iterations
 
 
 def _card():
@@ -251,6 +267,7 @@ def main():
           f"kernel fer_simulation at batch {BATCH}: {fps:.1f} frames/s {tag}")
 
     qary = _qary_phases(dev, tag, lib_paths["qary_min_sum"])
+    kyber = _kyber_phases(dev, tag)
 
     src = "sca_ldpc_tpu_torch/csrc/circulant_bp.cu"
     print(json.dumps({"kernels": [
@@ -263,6 +280,7 @@ def main():
          "launches": launches["circulant_bp_cuda"], "max_abs_err": k2_err,
          "ms": results["bp_ms"], "plain_ms": results["bp_plain_ms"]},
         *qary,
+        *kyber,
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
@@ -394,6 +412,114 @@ def _qary_phases(dev, tag, lib_path):
          "replaces": "sca_ldpc_tpu/ops/kernels/qary_pallas.py:264",
          "launches": launches["qary_min_sum_fused_cuda"], "max_abs_err": k6_err,
          "ms": k6_ms, "plain_ms": k6_plain_ms},
+    ]
+
+
+def _kyber_phases(dev, tag):
+    """Phases 8-9; returns K7's entry of the JSON line."""
+    from sca_ldpc_tpu_torch.channels import probs_to_llr
+    from sca_ldpc_tpu_torch.models.kyber import (
+        gen_ldpc_matrix,
+        simulate_kyber_attack,
+        simulate_kyber_attack_adaptive,
+    )
+    from sca_ldpc_tpu_torch.ops import QarySpecialDecoder, get_decoder_by_name, minplus
+    from sca_ldpc_tpu_torch.ops.qary import _signed
+    from sca_ldpc_tpu_torch.ops.kernels.qary_cuda import (
+        chain_exclusive_cuda,
+        qary_special_min_sum_fused_cuda,
+        qary_special_min_sum_fused_plain,
+        special_fused_smem_bytes,
+    )
+    from sca_ldpc_tpu_torch.utils import make_random_state
+
+    rng = np.random.RandomState(5678)
+    H = gen_ldpc_matrix(KY_SW, 0, check_blocks=2)
+    n_b, r = H.shape[1] - H.shape[0], H.shape[0]
+
+    # ---- phase 8: K7 against the plain decode
+    k7 = {}
+    for eta in (2, 3):
+        bsum = KY_SW * eta
+        dec = QarySpecialDecoder(H, eta, bsum, KY_ITER, backend="fused", device=dev)
+        probs_b = rng.dirichlet(np.ones(2 * eta + 1), size=(CMP_FRAMES, n_b)).astype(np.float32)
+        probs_s = rng.dirichlet(np.ones(2 * bsum + 1), size=(CMP_FRAMES, r)).astype(np.float32)
+        # K7's inputs: clipped LLRs, the sum channel in row order and its signed form
+        llr_b = minplus.clip_inf(probs_to_llr(torch.from_numpy(probs_b).to(dev))).contiguous()
+        llr_s = minplus.clip_inf(probs_to_llr(torch.from_numpy(probs_s).to(dev)))
+        llr_s = llr_s.index_select(1, dec._sum_var).contiguous()
+        vsum = _signed(llr_s, dec._args[6]).contiguous()
+        args = (llr_b, llr_s, vsum, *dec._args[:4], dec._args[6], eta, bsum, KY_ITER)
+        hb_k, hs_k = qary_special_min_sum_fused_cuda(*args)
+        hb_p, hs_p = qary_special_min_sum_fused_plain(*args)
+        torch.cuda.synchronize()
+        differ = int(((hb_k != hb_p).any(dim=-1) | (hs_k != hs_p).any(dim=-1)).sum())
+        err = max(int((hb_k - hb_p).abs().max()), int((hs_k - hs_p).abs().max()))
+        ms = _ms(lambda: qary_special_min_sum_fused_cuda(*args))
+        plain_ms = _ms(lambda: qary_special_min_sum_fused_plain(*args))
+        k7[eta] = (err, ms, plain_ms)
+        smem = special_fused_smem_bytes(n_b, r, KY_SW, eta, bsum)
+        print(f"phase 8 K7 DecoderN1280R512SW6 eta {eta} (QB {2 * eta + 1}, QS {2 * bsum + 1}, {smem} B shared "
+              f"memory a frame), {CMP_FRAMES} Dirichlet frames, {KY_ITER} iterations: decisions differ on {differ} "
+              f"frames, max_abs_err {err}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms {tag}")
+        if differ:
+            raise SystemExit(f"K7 eta {eta}: hard decisions differ from the plain version")
+
+    # ---- phase 9: path 3 through the public API
+    torch.cuda.synchronize()
+    chain_exclusive_cuda.launches = 0
+    qary_special_min_sum_fused_cuda.launches = 0
+    ch_b = np.full((BATCH, n_b, 5), 0.02, np.float32)
+    ch_b[:, :, 2] = 0.92
+    ch_s = np.zeros((BATCH, r, 25), np.float32)
+    ch_s[:, :, 12] = 1.0
+    llr_b = probs_to_llr(torch.from_numpy(ch_b).to(dev))
+    llr_s = probs_to_llr(torch.from_numpy(ch_s).to(dev))
+    fps = {}
+    for backend in ("fused", "chain", "plain"):
+        dec = get_decoder_by_name("DecoderN1280R512SW6", H, KY_ITER, backend=backend, device=dev)
+        best, hard = _best_s(lambda: dec.min_sum_llr(llr_b, llr_s))
+        zero = int((hard == 0).all(dim=-1).sum())
+        fps[backend] = BATCH / best
+        print(f"phase 9 Kyber decoder backend {backend}: {fps[backend]:.1f} frames/s at batch {BATCH}, {KY_ITER} "
+              f"iterations (best of 3); all-zero {zero}/{BATCH} {tag}")
+        if zero != BATCH:
+            raise SystemExit(f"Kyber decoder backend {backend}: {BATCH - zero} frames not all-zero")
+    if QarySpecialDecoder(H, 2, 12, KY_ITER, device=dev).backend != "fused":
+        raise SystemExit("the Kyber decoder's default backend on the card is not the fused kernel")
+
+    kw = dict(accuracy=0.995, num_patterns=3, num_patterns_sum=3, sum_weight=KY_SW, check_blocks=2,
+              iterations=KY_ITER, runs=2)
+    t0 = time.perf_counter()
+    attack = simulate_kyber_attack(make_random_state(7), device=dev, **kw)
+    attack_s = time.perf_counter() - t0
+    attack_cpu = simulate_kyber_attack(make_random_state(7), **kw)
+    frac = min(res["correct_coefficients"] / res["total_coefficients"] for res in attack)
+    print(f"phase 9 simulate_kyber_attack (seed 7, 2 runs) on the card in {attack_s:.2f} s: {attack}; "
+          f"equal to the CPU run: {attack == attack_cpu}")
+    if attack != attack_cpu:
+        raise SystemExit(f"simulate_kyber_attack: card {attack} != CPU {attack_cpu}")
+    if frac < 0.95:
+        raise SystemExit(f"simulate_kyber_attack recovered only {frac:.4f} of the coefficients")
+    t0 = time.perf_counter()
+    adaptive = simulate_kyber_attack_adaptive(make_random_state(0), accuracy=0.995, runs=1, device=dev)
+    print(f"phase 9 simulate_kyber_attack_adaptive (seed 0, eta 3) on the card in "
+          f"{time.perf_counter() - t0:.2f} s: {adaptive}")
+    if not adaptive[0]["recovered"]:
+        raise SystemExit("simulate_kyber_attack_adaptive did not recover the secret")
+    torch.cuda.synchronize()
+    launches = {"qary_special_min_sum_fused_cuda": qary_special_min_sum_fused_cuda.launches,
+                "chain_exclusive_cuda": chain_exclusive_cuda.launches}
+    print(f"phase 9 launches {launches}")
+    if min(launches.values()) <= 0:
+        raise SystemExit(f"a kernel of the Kyber path was not launched: {launches}")
+
+    return [
+        {"name": "qary_special_min_sum_fused_cuda", "route": "cuda",
+         "source": "sca_ldpc_tpu_torch/csrc/qary_min_sum.cu",
+         "replaces": "sca_ldpc_tpu/ops/kernels/qary_pallas.py:414",
+         "launches": launches["qary_special_min_sum_fused_cuda"], "max_abs_err": max(k7[2][0], k7[3][0]),
+         "ms": k7[2][1], "plain_ms": k7[2][2]},
     ]
 
 

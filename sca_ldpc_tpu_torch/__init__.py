@@ -14,9 +14,14 @@ reference; module paths mirror it.  Ported so far:
                 syndrome BP on ``[circulant | I]`` codes, with a hand-written
                 CUDA kernel (``csrc/circulant_bp.cu``) on the GPU;
                 :class:`~sca_ldpc_tpu_torch.ops.qary.QaryDecoder`, q-ary
-                min-sum with the min-plus chain (``ops/minplus.py``) and two
+                min-sum with the min-plus chain (``ops/minplus.py``), and
+                :class:`~sca_ldpc_tpu_torch.ops.qary_special.QarySpecialDecoder`,
+                the two-alphabet decoder of ``[H'|I]`` codes, with three
                 hand-written CUDA kernels (``csrc/qary_min_sum.cu``); the
                 decoder-name registry
+- ``models``:   ``models.kyber``, the Kyber-768 key-recovery pipeline
+                (secrets, pattern databases, posteriors, the fixed-pattern
+                and adaptive attack simulations)
 - ``parallel``: the single-device binary frame-error-rate step and loop
 - ``sim``:      the q-ary frame-error-rate simulation
 """

@@ -1,10 +1,12 @@
 // Q-ary min-sum decoding over symbols [-B..B] (Q = 2B+1), for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernels in sca_ldpc_tpu/ops/kernels/qary_pallas.py:
-//   chain_exclusive_pallas (K5, body _make_check_kernel) -> qary_chain_exclusive()
-//   qary_min_sum_fused     (K6, body _make_fused_kernel) -> qary_min_sum_fused()
-// and computes what the port's plain versions compute:
-// ops/minplus.py chain_exclusive and ops/qary.py _qary_min_sum.
+//   chain_exclusive_pallas     (K5, body _make_check_kernel)         -> qary_chain_exclusive()
+//   qary_min_sum_fused         (K6, body _make_fused_kernel)         -> qary_min_sum_fused()
+//   qary_special_min_sum_fused (K7, body _make_fused_special_kernel) -> qary_special_min_sum_fused()
+// and computes what the port's plain versions compute: ops/minplus.py
+// chain_exclusive, ops/qary.py _qary_min_sum and ops/qary_special.py
+// _special_min_sum.
 //
 // Exactness.  A min-plus convolution output is a min over terms a[i] + b[j],
 // each one f32 add; min is exact and order-free, so any evaluation order gives
@@ -46,6 +48,27 @@
 // x 1.98 GHz; the block's 101 KB of shared memory allow 2 blocks per SM.
 // Measured on an H100 80GB HBM3 at 700 W: 44 ms for 4096 frames and
 // 10 iterations, 4.3 ms an iteration of which the check sweep is about 93%.
+//
+// K7 design: K6's form for the two-alphabet code [H'|I] (Kyber).  One block
+// per frame runs every iteration; v2c/c2v [R, SW, QB] and tot_b [NB, QB] of
+// the B-variables live in dynamic shared memory (61,440 + 15,360 B at
+// Kyber-768, eta = 2), the sum-variable channel and its signed form
+// [R, QS] stay in device memory (each row is read once an iteration, from
+// L1/L2).  Per iteration:
+//   check sweep     one warp per check: the row's signed sum channel is the
+//                   chain's extra operand (K5 with extra), written in place
+//                   and reversed as c2v;
+//   variable sweep  tot_b = channel + ((u_0 + u_1) + ...), through var_flat;
+//   edge sweep      as K6 (skipped in the last iteration: nothing reads it).
+// The sum totals of a fixed-iteration decode depend only on the v2c at the
+// start of the last iteration, so the last check sweep first forms the full
+// conv of the row's SW B-messages to +-BSUM (before the chain overwrites
+// them), adds the row's sum channel and writes argmin - BSUM out: no tot_s
+// buffer.  A frame takes about 83 KB at Kyber-768 (2 blocks per SM) and
+// 116 KB at eta = 3 (QB = 7, QS = 37; 1 block per SM).  Bound: as K6, the
+// check sweep's min-plus terms, 2,230 add+min pairs a row at Kyber-768
+// (1.1e6 a frame-iteration), on output windows of 5 symbols that leave most
+// of a warp's lanes idle.
 
 #include <cmath>
 #include <cstdint>
@@ -286,6 +309,153 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// Floats of one K7 warp's slice: the row's signed sum channel [qs], then
+// scratch for the chain with extra (or for the full conv's two [qs] buffers).
+long long special_warp_floats(int sw, int b, int bsum) {
+  const int qs = 2 * bsum + 1;
+  const int s_pre = b + bsum;
+  const long long chain = 2LL * partial_offset(sw, sw, b, s_pre, (2 * sw - 1) * b) + 2 * s_pre + 1;
+  return qs + (chain > 2LL * qs ? chain : 2LL * qs);
+}
+
+long long special_fused_floats(int nb, int r, int sw, int b, int bsum) {
+  const long long qb = 2 * b + 1;
+  return static_cast<long long>(r) * sw * qb + nb * qb + kWarps * special_warp_floats(sw, b, bsum);
+}
+
+// The sum variable's decision for one check, by one warp: the full conv of
+// the row's sw B-messages m [sw, qb] to +-bsum (minplus.conv's term set,
+// from the delta identity), then tot[s] = cs[s] + signed(reversed full)[s]
+// and the first-minimal s, minus bsum, into *out.  buf: 2 * qs floats.
+__device__ void sum_decision(const float* m, int sw, int b, int bsum, const float* cs, bool neg, float* buf,
+                             int* out, int lane) {
+  const int qb = 2 * b + 1;
+  const int qs = 2 * bsum + 1;
+  float* cur = buf;
+  float* nxt = buf + qs;
+  for (int t = lane; t < qs; t += 32) cur[t] = (t == bsum) ? 0.0f : kBig;
+  __syncwarp();
+  for (int j = 0; j < sw; ++j) {
+    conv_warp(m + j * qb, b, b, cur, bsum, bsum, bsum, nxt, 1, lane);
+    __syncwarp();
+    float* t = cur;
+    cur = nxt;
+    nxt = t;
+  }
+  if (lane == 0) {
+    // c2v_sum[s] = min(full[qs-1-s], BIG); signed: reversed again where neg
+    float best = cs[0] + fminf(cur[neg ? 0 : qs - 1], kBig);
+    int bi = 0;
+    for (int s = 1; s < qs; ++s) {
+      const float v = cs[s] + fminf(cur[neg ? s : qs - 1 - s], kBig);
+      if (v < best) {
+        best = v;
+        bi = s;
+      }
+    }
+    *out = bi - bsum;
+  }
+  __syncwarp();
+}
+
+// K7: the whole two-alphabet decode of one frame per block.
+__global__ void __launch_bounds__(kThreads)
+    qary_special_fused_kernel(const float* __restrict__ channel, const float* __restrict__ chs,
+                              const float* __restrict__ vsum, const int* __restrict__ bvar_idx,
+                              const int* __restrict__ bvar_sign, const int* __restrict__ bvar_mask,
+                              const int* __restrict__ var_flat, const int* __restrict__ sum_sign, int nb, int r,
+                              int sw, int dv, int b, int bsum, int max_iter, int warp_floats,
+                              int* __restrict__ hard_b, int* __restrict__ hard_s) {
+  extern __shared__ float smem[];
+  const int qb = 2 * b + 1;
+  const int qs = 2 * bsum + 1;
+  const int s_mid = (2 * sw - 1) * b;
+  const int edges = r * sw;
+  float* v2c = smem;              // [R*SW, QB]; holds c2v between the check and edge sweeps
+  float* tot = v2c + edges * qb;  // [NB, QB]
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  float* ex = tot + nb * qb + warp * warp_floats;  // [QS]: the row's signed sum channel
+  float* scratch = ex + qs;
+  const size_t f = blockIdx.x;
+  const float* ch = channel + f * nb * qb;
+  const float* cs = chs + f * r * qs;
+  const float* vs = vsum + f * r * qs;
+  int* hs = hard_s + f * r;
+
+  // Initial v2c: the signed channel on each edge, the delta identity on pads.
+  for (int idx = threadIdx.x; idx < edges * qb; idx += kThreads) {
+    const int e = idx / qb;
+    const int s = idx - e * qb;
+    v2c[idx] = bvar_mask[e] ? ch[bvar_idx[e] * qb + (bvar_sign[e] < 0 ? qb - 1 - s : s)]
+                            : (s == b ? 0.0f : kBig);
+  }
+  for (int idx = threadIdx.x; idx < nb * qb; idx += kThreads) tot[idx] = 0.0f;
+  if (max_iter == 0) {
+    for (int i = threadIdx.x; i < r; i += kThreads) hs[i] = -bsum;  // argmin of all-zero totals
+  }
+  __syncthreads();
+
+  for (int it = 0; it < max_iter; ++it) {
+    const bool last = it == max_iter - 1;
+    // ---- check sweep: c2v in place of v2c (last iteration: sum decisions first)
+    for (int i = warp; i < r; i += kWarps) {
+      float* m = v2c + i * sw * qb;
+      for (int t = lane; t < qs; t += 32) ex[t] = vs[i * qs + t];
+      __syncwarp();
+      if (last) sum_decision(m, sw, b, bsum, cs + i * qs, sum_sign[i] < 0, scratch, hs + i, lane);
+      chain_check(m, sw, qb, s_mid, b, ex, bsum, scratch, m, qb, true, lane);
+    }
+    __syncthreads();
+
+    // ---- variable sweep: tot = channel + ((u_0 + u_1) + ...), pads add 0
+    for (int idx = threadIdx.x; idx < nb * qb; idx += kThreads) {
+      const int v = idx / qb;
+      const int s = idx - v * qb;
+      float acc = 0.0f;
+      for (int t = 0; t < dv; ++t) {
+        const int e = var_flat[v * dv + t];
+        float u = 0.0f;
+        if (e < edges) u = v2c[e * qb + (bvar_sign[e] < 0 ? qb - 1 - s : s)];
+        acc = (t == 0) ? u : acc + u;
+      }
+      tot[idx] = ch[idx] + acc;
+    }
+    __syncthreads();
+    if (last) break;
+
+    // ---- edge sweep: extrinsic, normalized v2c
+    for (int e = threadIdx.x; e < edges; e += kThreads) {
+      float* m = v2c + e * qb;
+      if (!bvar_mask[e]) {
+        for (int s = 0; s < qb; ++s) m[s] = (s == b) ? 0.0f : kBig;
+        continue;
+      }
+      const float* t = tot + bvar_idx[e] * qb;
+      const bool neg = bvar_sign[e] < 0;
+      float mn = INFINITY;
+      for (int s = 0; s < qb; ++s) mn = fminf(mn, t[neg ? qb - 1 - s : s] - m[s]);
+      for (int s = 0; s < qb; ++s) m[s] = fminf((t[neg ? qb - 1 - s : s] - m[s]) - mn, kBig);
+    }
+    __syncthreads();
+  }
+
+  // B decisions: first-minimal symbol of the last totals, minus B.
+  int* h = hard_b + f * nb;
+  for (int v = threadIdx.x; v < nb; v += kThreads) {
+    const float* t = tot + v * qb;
+    float best = t[0];
+    int bi = 0;
+    for (int s = 1; s < qb; ++s) {
+      if (t[s] < best) {
+        best = t[s];
+        bi = s;
+      }
+    }
+    h[v] = bi - b;
+  }
+}
+
 }  // namespace
 
 // Dynamic shared memory of one K5 block (kWarps checks); we = 0 without extra.
@@ -340,5 +510,38 @@ extern "C" int qary_min_sum_fused(const float* channel, const int* chk_var, cons
   if (err != cudaSuccess) return static_cast<int>(err);
   qary_fused_kernel<<<batch, kThreads, static_cast<size_t>(smem), static_cast<cudaStream_t>(stream)>>>(
       channel, chk_var, chk_sign, chk_mask, var_flat, n, r, dc, dv, q, max_iter, hard);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Dynamic shared memory of one K7 block (one frame).
+extern "C" long long qary_special_fused_smem_bytes(int nb, int r, int sw, int b, int bsum) {
+  return special_fused_floats(nb, r, sw, b, bsum) * static_cast<long long>(sizeof(float));
+}
+
+// K7 (replaces qary_special_min_sum_fused).  channel [batch, nb, 2b+1] f32
+// finite min-sum LLRs of the B-variables; chs [batch, r, 2bsum+1] f32 the
+// sum variables' LLRs in row order and vsum the same reversed where
+// sum_sign is -1; bvar_idx/bvar_sign/bvar_mask [r, sw] int32 (pads: mask 0),
+// var_flat [nb, dv] int32 into [r*sw] (pads: r*sw), sum_sign [r] int32;
+// hard_b [batch, nb] int32 in [-b..b], hard_s [batch, r] int32 in
+// [-bsum..bsum], row order.  Returns a cudaError_t.
+extern "C" int qary_special_min_sum_fused(const float* channel, const float* chs, const float* vsum,
+                                          const int* bvar_idx, const int* bvar_sign, const int* bvar_mask,
+                                          const int* var_flat, const int* sum_sign, int batch, int nb, int r, int sw,
+                                          int dv, int b, int bsum, int max_iter, int* hard_b, int* hard_s,
+                                          void* stream) {
+  if (batch < 0 || nb < 1 || r < 1 || sw < 1 || dv < 1 || b < 1 || bsum < 1 || max_iter < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const long long smem = qary_special_fused_smem_bytes(nb, r, sw, b, bsum);
+  if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
+  if (batch == 0) return 0;
+  cudaError_t err = cudaFuncSetAttribute(qary_special_fused_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int warp_floats = static_cast<int>(special_warp_floats(sw, b, bsum));
+  qary_special_fused_kernel<<<batch, kThreads, static_cast<size_t>(smem), static_cast<cudaStream_t>(stream)>>>(
+      channel, chs, vsum, bvar_idx, bvar_sign, bvar_mask, var_flat, sum_sign, nb, r, sw, dv, b, bsum, max_iter,
+      warp_floats, hard_b, hard_s);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,0 +1,365 @@
+"""End-to-end Kyber-768 key-recovery pipeline.
+
+Assembles the pieces the reference provides (kyber.py:362-435) and completes
+the integration it leaves stubbed (get_decoder raises NotImplementedError at
+kyber.py:379-381; the paper used DecoderN1280R512SW6): channel assembly,
+decoder selection over our batched q-ary special decoder, and a full
+simulated attack: sample secret -> build [H'|I] -> simulate noisy oracle
+measurements from the pattern databases -> posteriors -> batched decode ->
+recovery statistics.
+
+The port of the JAX package's ``models/kyber/pipeline.py``: the same
+arguments, random draws and result dicts, plus a ``device`` argument that
+places the decoder (on a CUDA device it decodes through the K7 kernel,
+``csrc/qary_min_sum.cu``, where a frame fits its shared memory).
+"""
+
+import logging
+
+import numpy as np
+
+from ...ops.qary_special import QarySpecialDecoder
+from ...utils import make_random_state
+from .params import BLOCK_LEN, ETA, NUM_BLOCKS
+from .patterns import coding_from_patterns, get_patterns
+from .posterior import posteriors_from_hard
+from .secrets import (
+    compute_ssum,
+    gen_ldpc_matrix,
+    generate_secret,
+    secret_distribution,
+)
+
+logger = logging.getLogger(__name__)
+
+
+def get_channel_probabilities(s_distr, ssum_distr, sum_weight, check_blocks):
+    """Assemble decoder channel tables (kyber.py:362-376).
+
+    The sum distributions are reversed so each check's symbols sum to zero —
+    the special decoder's identity column carries -ssum."""
+    assert len(s_distr) == NUM_BLOCKS
+    assert len(s_distr[0]) == BLOCK_LEN
+    ssum_len = BLOCK_LEN * check_blocks
+    assert len(ssum_distr) == ssum_len
+    B = sum_weight * ETA
+    channel = np.zeros((BLOCK_LEN * NUM_BLOCKS, 2 * ETA + 1), np.float32)
+    channel_sum = np.zeros((ssum_len, 2 * B + 1), np.float32)
+    for j in range(NUM_BLOCKS):
+        for i in range(BLOCK_LEN):
+            channel[i + j * BLOCK_LEN] = s_distr[j][i]
+    for i in range(ssum_len):
+        channel_sum[i] = ssum_distr[i][::-1]
+    return channel, channel_sum
+
+
+def get_decoder(sum_weight, H, check_blocks, iterations, backend=None, device="cpu"):
+    """Decoder for the Kyber attack geometry — the component the reference
+    leaves unimplemented (kyber.py:379-435).  Any (sum_weight, check_blocks)
+    combination works; shapes are validated against H.  ``backend`` None
+    takes the decoder's default for ``device``."""
+    H = np.asarray(H, dtype=np.int8)
+    r = BLOCK_LEN * check_blocks
+    n = BLOCK_LEN * NUM_BLOCKS + r
+    if H.shape != (r, n):
+        raise ValueError(f"H shape {H.shape} does not match (r={r}, n={n})")
+    b = ETA
+    bsum = sum_weight * ETA
+    return QarySpecialDecoder(H, b=b, bsum=bsum, max_iter=iterations,
+                              sw=sum_weight, backend=backend, device=device)
+
+
+def simulate_measurements(s_flat, pattern, accuracy, rng):
+    """Simulate noisy binary oracle measurements of each secret coefficient
+    under ``pattern`` with the given oracle accuracy."""
+    coding = coding_from_patterns(pattern, sum_weight=1)
+    m = len(coding[0])
+    true_bits = np.array([coding[int(v)] for v in s_flat])  # [n, m]
+    flips = rng.rand(*true_bits.shape) > accuracy
+    return np.where(flips, 1 - true_bits, true_bits)
+
+
+def simulate_measurements_fpfn(true_bits, p_arr, rng):
+    """Flip measurement bits under per-position asymmetric noise: a true 0
+    reads 1 with rate fp[pos], a true 1 reads 0 with rate fn[pos]
+    (``p_arr``: [m, 2], posterior.normalize_fp_fn layout)."""
+    true_bits = np.asarray(true_bits)
+    p_arr = np.asarray(p_arr, np.float64)
+    flip_rate = np.where(true_bits == 1, p_arr[None, :, 1], p_arr[None, :, 0])
+    flips = rng.rand(*true_bits.shape) < flip_rate
+    return np.where(flips, 1 - true_bits, true_bits)
+
+
+def simulate_sum_measurements(ssum, pattern_sum, accuracy, rng, sum_weight):
+    coding = coding_from_patterns(pattern_sum, sum_weight=sum_weight)
+    m = len(coding[0])
+    true_bits = np.array([coding[int(v)] for v in ssum])
+    flips = rng.rand(*true_bits.shape) > accuracy
+    return np.where(flips, 1 - true_bits, true_bits)
+
+
+def simulate_kyber_attack(
+    rng,
+    accuracy=0.95,
+    num_patterns=3,
+    num_patterns_sum=3,
+    sum_weight=6,
+    check_blocks=2,
+    iterations=10,
+    runs=1,
+    fp=None,
+    fn=None,
+    fp_sum=None,
+    fn_sum=None,
+    device="cpu",
+):
+    """Full simulated Kyber-768 attack; returns per-run recovery stats.
+
+    Each run: sample secret s, build [H'|I], compute ssum = H's, simulate
+    noisy oracle measurements of every coefficient and sum, convert to
+    posteriors, decode with the two-alphabet min-sum decoder, compare.
+
+    ``fp``/``fn``: optional per-position (or scalar) false-positive /
+    false-negative oracle rates for the single-coefficient measurements.
+    When given, measurements are flipped asymmetrically per position and
+    posteriors use the matched FalsePositiveNegativePositionalOracle model
+    (posterior.posteriors_from_hard_fpfn) instead of the uniform-accuracy
+    one; ``accuracy`` then only selects the pattern database (the
+    reference records patterns per idealized accuracy, kyber.py:115-283).
+    ``fp_sum``/``fn_sum`` control the sum-check measurements separately
+    (default: the mean of the single-coefficient rates — sum measurements
+    have their own pattern length).  ``device`` places the decoder.
+    """
+    from .posterior import normalize_fp_fn, posteriors_from_hard_fpfn
+
+    rng = make_random_state(rng)
+    patterns = get_patterns(ETA, accuracy, num_patterns, num_patterns_sum, sum_weight)
+    H = gen_ldpc_matrix(sum_weight, rng, check_blocks)
+    decoder = get_decoder(sum_weight, H, check_blocks, iterations, device=device)
+
+    prior_single = secret_distribution(1)
+    prior_sum = secret_distribution(sum_weight)
+    coding_single = coding_from_patterns(patterns["pattern"], 1)
+    coding_sum = coding_from_patterns(patterns["pattern_sum"], sum_weight)
+    fpfn = fp is not None or fn is not None
+    if fpfn:
+        fp = (1.0 - accuracy) if fp is None else fp
+        fn = (1.0 - accuracy) if fn is None else fn
+        m_single = len(coding_single[0])
+        m_sum = len(coding_sum[0])
+        p_single = normalize_fp_fn(fp, fn, m_single)
+        p_sum = normalize_fp_fn(
+            float(np.mean(fp)) if fp_sum is None else fp_sum,
+            float(np.mean(fn)) if fn_sum is None else fn_sum,
+            m_sum,
+        )
+
+    n_b = BLOCK_LEN * NUM_BLOCKS
+    results = []
+    for _run in range(runs):
+        s = generate_secret(rng=rng)
+        ssum = compute_ssum(s, H, check_blocks)
+        s_flat = np.array(s).reshape(-1)
+
+        if fpfn:
+            true_single = np.array([coding_single[int(v)] for v in s_flat])
+            true_sum = np.array([coding_sum[int(v)] for v in ssum])
+            meas = simulate_measurements_fpfn(true_single, p_single, rng)
+            meas_sum = simulate_measurements_fpfn(true_sum, p_sum, rng)
+            post = posteriors_from_hard_fpfn(
+                meas, coding_single, prior_single, p_single
+            )
+            post_sum = posteriors_from_hard_fpfn(
+                meas_sum, coding_sum, prior_sum, p_sum
+            )
+        else:
+            meas = simulate_measurements(
+                s_flat, patterns["pattern"], accuracy, rng
+            )
+            meas_sum = simulate_sum_measurements(
+                ssum, patterns["pattern_sum"], accuracy, rng, sum_weight
+            )
+            post = posteriors_from_hard(
+                meas, coding_single, prior_single, accuracy
+            )
+            post_sum = posteriors_from_hard(
+                meas_sum, coding_sum, prior_sum, accuracy
+            )
+
+        s_distr = [post[j * BLOCK_LEN : (j + 1) * BLOCK_LEN] for j in range(NUM_BLOCKS)]
+        channel, channel_sum = get_channel_probabilities(
+            s_distr, post_sum, sum_weight, check_blocks
+        )
+
+        decoded = decoder.min_sum(channel, channel_sum).cpu().numpy()
+        correct = int((decoded[:n_b] == s_flat).sum())
+        recovered = correct == n_b
+        results.append(
+            {
+                "recovered": recovered,
+                "correct_coefficients": correct,
+                "total_coefficients": n_b,
+            }
+        )
+        logger.info(
+            f"Kyber attack run: {correct}/{n_b} coefficients correct, "
+            f"full recovery={recovered}"
+        )
+    return results
+
+
+# ---------------------------------------------------------------------------
+# Adaptive (tree-coded) measurement mode
+# ---------------------------------------------------------------------------
+
+
+def binary_sum_coding(bsum, bits=None):
+    """Fixed binary coding of the sum alphabet [-bsum..bsum]: symbol ->
+    ceil(log2(2*bsum+1))-bit codeword.  The reference records sum-pattern
+    databases only for eta=2 geometries (kyber.py:115-283); for the eta=3
+    adaptive pipeline this framework supplies a generic coding (patterns
+    are arbitrary bit labelings of the symbol set — cf. the DB's own
+    non-monotone codewords)."""
+    n_sym = 2 * bsum + 1
+    if bits is None:
+        bits = max(1, (n_sym - 1).bit_length())
+    return {
+        s: tuple((i >> b) & 1 for b in range(bits))
+        for i, s in enumerate(range(-bsum, bsum + 1))
+    }
+
+
+def simulate_adaptive_measurements(s_flat, tree, accuracy, rng):
+    """Walk the adaptive decision tree per coefficient with noisy answers.
+
+    Each node asks "s < value"; the (noisy) answer decides the branch
+    (1 -> left, matching pr_cond_yx_adaptive's convention,
+    max_likelihood.py:109-130).  Unlike fixed patterns the answer sequence
+    drives which question comes next, so measurement errors change the
+    path — exactly the behavior the adaptive posterior models.
+
+    Returns ``(sequences, total_measurements)``.
+    """
+    from .adaptive import CodingNode  # noqa: F401  (type of `tree`)
+
+    sequences = []
+    total = 0
+    for v in s_flat:
+        node = tree
+        seq = []
+        while node is not None:
+            true_answer = 1 if v < node.value else 0
+            answer = true_answer if rng.rand() < accuracy else 1 - true_answer
+            seq.append(answer)
+            node = node.left if answer == 1 else node.right
+        sequences.append(tuple(seq))
+        total += len(seq)
+    return sequences, total
+
+
+def simulate_kyber_attack_adaptive(
+    rng,
+    accuracy=0.995,
+    avg_measurements=2.5625,
+    sum_weight=6,
+    check_blocks=2,
+    iterations=10,
+    runs=1,
+    eta=3,
+    device="cpu",
+):
+    """Full simulated attack with ADAPTIVE single-coefficient measurements.
+
+    Uses the eta=3 adaptive pattern database the reference records but
+    never exercises (kyber.py:268-283; the adaptive posterior functions in
+    max_likelihood.py:109-175 are equally unused there): per coefficient,
+    a prefix-free decision tree is walked with noisy oracle answers
+    (~``avg_measurements`` expected measurements for ~2.33 bits at
+    accuracy 0.995 — more information than 3 fixed measurements give an
+    eta=2 coefficient), posteriors come from
+    ``s_distribution_from_hard_y_adaptive``, sums are measured under a
+    generic binary coding (:func:`binary_sum_coding`), and the two-alphabet
+    decoder recovers the secret.
+
+    Returns per-run stats including the measured average measurements per
+    coefficient (data-dependent, unlike fixed patterns).  ``device`` places
+    the decoder.
+    """
+    from .adaptive import tree_from_adaptive_pattern
+    from .patterns import get_restricted_single_patterns
+    from .posterior import posteriors_from_hard, s_distribution_from_hard_y_adaptive
+    from .secrets import sample_secret_coefs
+
+    rng = make_random_state(rng)
+    pattern = get_restricted_single_patterns(eta, accuracy, avg_measurements)
+    tree = tree_from_adaptive_pattern(pattern, eta=eta)
+
+    H = gen_ldpc_matrix(sum_weight, rng, check_blocks)
+    bsum = sum_weight * eta
+    decoder = QarySpecialDecoder(
+        np.asarray(H, np.int8), b=eta, bsum=bsum, max_iter=iterations,
+        sw=sum_weight, device=device,
+    )
+
+    prior_single = secret_distribution(1, eta=eta)
+    prior_sum = secret_distribution(sum_weight, eta=eta)
+    sum_coding = binary_sum_coding(bsum)
+    symbols = list(range(-eta, eta + 1))
+
+    n_b = BLOCK_LEN * NUM_BLOCKS
+    r = BLOCK_LEN * check_blocks
+    results = []
+    for _run in range(runs):
+        s = [sample_secret_coefs(BLOCK_LEN, eta=eta, rng=rng)
+             for _ in range(NUM_BLOCKS)]
+        ssum = compute_ssum(s, H, check_blocks)
+        s_flat = np.array(s).reshape(-1)
+
+        seqs, total_meas = simulate_adaptive_measurements(
+            s_flat, tree, accuracy, rng
+        )
+        # Posterior per distinct answer sequence (they repeat heavily).
+        post_cache = {}
+        post = np.zeros((n_b, len(symbols)), np.float32)
+        for i, seq in enumerate(seqs):
+            if seq not in post_cache:
+                post_cache[seq] = s_distribution_from_hard_y_adaptive(
+                    list(seq), accuracy, lambda sw: symbols, tree,
+                    prior_single, 1,
+                )
+            post[i] = post_cache[seq]
+
+        meas_sum = simulate_sum_measurements_coding(
+            ssum, sum_coding, accuracy, rng
+        )
+        post_sum = posteriors_from_hard(
+            meas_sum, sum_coding, prior_sum, accuracy
+        )
+
+        channel = post
+        channel_sum = np.asarray(post_sum, np.float32)[:, ::-1]
+
+        decoded = decoder.min_sum(channel, channel_sum).cpu().numpy()
+        correct = int((decoded[:n_b] == s_flat).sum())
+        recovered = correct == n_b
+        results.append({
+            "recovered": recovered,
+            "correct_coefficients": correct,
+            "total_coefficients": n_b,
+            "avg_measurements_per_coeff": total_meas / n_b,
+            "sum_measurements": int(meas_sum.shape[0] * meas_sum.shape[1]),
+        })
+        logger.info(
+            f"Adaptive Kyber run: {correct}/{n_b} correct, "
+            f"avg {total_meas / n_b:.3f} measurements/coeff, "
+            f"recovery={recovered}"
+        )
+    return results
+
+
+def simulate_sum_measurements_coding(ssum, coding, accuracy, rng):
+    """Noisy measurements of each check sum under an explicit coding dict."""
+    m = len(next(iter(coding.values())))
+    true_bits = np.array([coding[int(v)] for v in ssum])
+    flips = rng.rand(*true_bits.shape) > accuracy
+    return np.where(flips, 1 - true_bits, true_bits)

@@ -8,9 +8,13 @@ Counterparts of ``sca_ldpc_tpu/ops/kernels/qary_pallas.py``:
   :func:`~sca_ldpc_tpu_torch.ops.minplus.chain_exclusive`;
 - :func:`qary_min_sum_fused_cuda` (``qary_min_sum_fused``, K6): the whole
   fixed-iteration decode in one launch, hard decisions out; bitwise equal
-  totals, so equal decisions, to the plain ``_qary_min_sum``.
+  totals, so equal decisions, to the plain ``_qary_min_sum``;
+- :func:`qary_special_min_sum_fused_cuda` (``qary_special_min_sum_fused``,
+  K7): the whole fixed-iteration two-alphabet (Kyber) decode in one launch;
+  bitwise equal totals, so equal decisions, to the plain
+  ``qary_special._special_min_sum``.
 
-Both launch ``csrc/qary_min_sum.cu`` (built with ``nvcc`` at first use, see
+All launch ``csrc/qary_min_sum.cu`` (built with ``nvcc`` at first use, see
 ``_build.py``) for CUDA tensors, and run the plain version for CPU tensors.
 There is no fallback: a CUDA tensor that the kernel cannot take raises.  Each
 wrapper counts its kernel launches in ``.launches``.
@@ -48,7 +52,21 @@ def _lib():
     lib.qary_chain_smem_bytes.restype = ll
     lib.qary_fused_smem_bytes.argtypes = [i, i, i, i]
     lib.qary_fused_smem_bytes.restype = ll
+    lib.qary_special_min_sum_fused.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, p, p, p]
+    lib.qary_special_min_sum_fused.restype = i
+    lib.qary_special_fused_smem_bytes.argtypes = [i, i, i, i, i]
+    lib.qary_special_fused_smem_bytes.restype = ll
     return lib
+
+
+def fused_smem_bytes(n, r, dc, q):
+    """Dynamic shared memory one K6 frame needs, in bytes (from the library)."""
+    return _lib().qary_fused_smem_bytes(n, r, dc, q)
+
+
+def special_fused_smem_bytes(n_b, r, sw, b, bsum):
+    """Dynamic shared memory one K7 frame needs, in bytes (from the library)."""
+    return _lib().qary_special_fused_smem_bytes(n_b, r, sw, b, bsum)
 
 
 def chain_exclusive_plain(v2c, s_mid, s_out, extra=None):
@@ -140,7 +158,7 @@ def qary_min_sum_fused_cuda(channel, chk_var, chk_sign, chk_mask, var_flat, b_ra
         return qary_min_sum_fused_plain(channel, chk_var, chk_sign, chk_mask, var_flat, b_range, max_iter)
 
     stream = _cuda_stream(device)
-    smem = _lib().qary_fused_smem_bytes(n, r, dc, q)
+    smem = fused_smem_bytes(n, r, dc, q)
     if smem > MAX_SMEM_BYTES:
         raise ValueError(
             f"qary_min_sum_fused_cuda: N={n}, R={r}, DC={dc}, Q={q} need {smem} B of shared memory "
@@ -169,3 +187,89 @@ def qary_min_sum_fused_cuda(channel, chk_var, chk_sign, chk_mask, var_flat, b_ra
 
 
 qary_min_sum_fused_cuda.launches = 0
+
+
+def qary_special_min_sum_fused_plain(channel_llr, channel_sum_row, vsum_signed, bvar_idx, bvar_sign, bvar_mask,
+                                     var_flat, sum_sign, b, bsum, max_iter):
+    """Plain PyTorch version of :func:`qary_special_min_sum_fused_cuda`, on
+    any device: the fixed-iteration plain ``_special_min_sum`` (which forms
+    the signed sum channel itself, so ``vsum_signed`` is not read)."""
+    from ..qary import _var_sign_mask
+    from ..qary_special import _special_min_sum
+
+    var_sign, var_mask = _var_sign_mask(bvar_sign, var_flat)
+    return _special_min_sum(bvar_idx, bvar_sign, bvar_mask, var_flat, var_sign, var_mask, sum_sign,
+                            channel_llr, channel_sum_row, int(max_iter), int(b), int(bsum))
+
+
+def qary_special_min_sum_fused_cuda(channel_llr, channel_sum_row, vsum_signed, bvar_idx, bvar_sign, bvar_mask,
+                                    var_flat, sum_sign, b, bsum, max_iter):
+    """Whole two-alphabet decode of ``[H'|I]``, as the JAX package's
+    ``qary_special_min_sum_fused``.
+
+    channel_llr: [Bt, NB, 2b+1] float32 finite min-sum LLRs of the
+    B-variables; channel_sum_row: [Bt, R, 2bsum+1] float32 finite LLRs of
+    the sum variables in row order; vsum_signed: the same reversed on rows
+    whose ``sum_sign`` is -1 (the sum variable's constant v2c message);
+    bvar_idx, bvar_sign, bvar_mask: [R, SW] int32 and var_flat: [NB, DV]
+    int32, as :func:`~sca_ldpc_tpu_torch.ops.qary_special.special_index_arrays`
+    gives them (bvar_mask 0/1); sum_sign: [R] int32.  Returns
+    ``(hard_b [Bt, NB], hard_sum_row [Bt, R])`` int32.
+    """
+    device = channel_llr.device
+    if channel_llr.ndim != 3 or channel_sum_row.ndim != 3 or bvar_idx.ndim != 2 or var_flat.ndim != 2:
+        raise ValueError("channel_llr must be [Bt, NB, QB], channel_sum_row [Bt, R, QS], bvar_idx [R, SW] "
+                         "and var_flat [NB, DV]")
+    bt, nb, qb = channel_llr.shape
+    r, sw = bvar_idx.shape
+    qs = channel_sum_row.shape[2]
+    dv = var_flat.shape[1]
+    _check(channel_llr, "channel_llr", (bt, nb, qb), _F32, device)
+    _check(channel_sum_row, "channel_sum_row", (bt, r, qs), _F32, device)
+    _check(vsum_signed, "vsum_signed", (bt, r, qs), _F32, device)
+    for name, x, shape in (("bvar_idx", bvar_idx, (r, sw)), ("bvar_sign", bvar_sign, (r, sw)),
+                           ("bvar_mask", bvar_mask, (r, sw)), ("var_flat", var_flat, (nb, dv)),
+                           ("sum_sign", sum_sign, (r,))):
+        _check(x, name, shape, _I32, device)
+    b, bsum, max_iter = int(b), int(bsum), int(max_iter)
+    if qb != 2 * b + 1 or qs != 2 * bsum + 1 or b < 1 or bsum < 1:
+        raise ValueError(f"channels have {qb} and {qs} symbol columns, expected 2*{b}+1 and 2*{bsum}+1 (b, bsum >= 1)")
+    if max_iter < 0:
+        raise ValueError("max_iter must be >= 0")
+    if device.type == "cpu":
+        return qary_special_min_sum_fused_plain(channel_llr, channel_sum_row, vsum_signed, bvar_idx, bvar_sign,
+                                                bvar_mask, var_flat, sum_sign, b, bsum, max_iter)
+
+    stream = _cuda_stream(device)
+    smem = special_fused_smem_bytes(nb, r, sw, b, bsum)
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(
+            f"qary_special_min_sum_fused_cuda: NB={nb}, R={r}, SW={sw}, B={b}, BSUM={bsum} need {smem} B of "
+            f"shared memory per frame; the bound is {MAX_SMEM_BYTES} B (backend='chain' takes any size)"
+        )
+    real = bvar_mask != 0
+    bad = (
+        (real & ((bvar_idx < 0) | (bvar_idx >= nb))).any()
+        | ((bvar_sign != 1) & (bvar_sign != -1)).any()
+        | ((sum_sign != 1) & (sum_sign != -1)).any()
+        | ((var_flat < 0) | (var_flat > r * sw)).any()
+    )
+    if bool(bad):
+        raise ValueError("adjacency out of range: bvar_idx in [0, NB) on real slots, bvar_sign and sum_sign "
+                         "+-1, var_flat in [0, R*SW]")
+    with torch.cuda.device(device):
+        hard_b = torch.empty((bt, nb), dtype=torch.int32, device=device)
+        hard_s = torch.empty((bt, r), dtype=torch.int32, device=device)
+        if bt:
+            rc = _lib().qary_special_min_sum_fused(
+                channel_llr.data_ptr(), channel_sum_row.data_ptr(), vsum_signed.data_ptr(), bvar_idx.data_ptr(),
+                bvar_sign.data_ptr(), bvar_mask.data_ptr(), var_flat.data_ptr(), sum_sign.data_ptr(),
+                bt, nb, r, sw, dv, b, bsum, max_iter, hard_b.data_ptr(), hard_s.data_ptr(), stream,
+            )
+            if rc != 0:
+                raise RuntimeError(f"qary_special_min_sum_fused launch failed: CUDA error {rc}")
+            qary_special_min_sum_fused_cuda.launches += 1
+    return hard_b, hard_s
+
+
+qary_special_min_sum_fused_cuda.launches = 0

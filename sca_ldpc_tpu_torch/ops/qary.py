@@ -36,6 +36,19 @@ def _signed(msg, sign):
     return torch.where(sign[..., None] < 0, msg.flip(-1), msg)
 
 
+def default_backend(device, early_exit, fits):
+    """The default backend of the q-ary decoders, chosen once at
+    construction: ``"plain"`` on the CPU; on a CUDA device ``"chain"`` with
+    ``early_exit``, else ``"fused"`` when ``fits()`` (one frame fits the
+    fused kernel's shared memory) and ``"chain"``, which takes any size,
+    when it does not."""
+    if device.type != "cuda":
+        return "plain"
+    if early_exit:
+        return "chain"
+    return "fused" if fits() else "chain"
+
+
 def _var_sign_mask(chk_sign, var_flat):
     """The variable-side sign and mask of ``CodeLayout`` (``var_sign``,
     ``var_mask``) from ``chk_sign`` and ``var_flat``: a slot is real when it
@@ -149,9 +162,11 @@ class QaryDecoder:
 
     ``QaryDecoder(H, B, iterations)`` as the reference's registered decoders
     (pydecoder.rs:24-45).  ``backend`` is one of :data:`BACKENDS` (module
-    docstring); by default ``"fused"`` on a CUDA device, ``"chain"`` there
-    with ``early_exit``, and ``"plain"`` on the CPU.  Inputs (numpy arrays or
-    tensors) are placed on ``device``; decisions come back there as int32.
+    docstring); by default (:func:`default_backend`) ``"fused"`` on a CUDA
+    device when a frame fits the kernel's shared memory, ``"chain"`` there
+    otherwise or with ``early_exit``, and ``"plain"`` on the CPU.  Inputs
+    (numpy arrays or tensors) are placed on ``device``; decisions come back
+    there as int32.
     """
 
     def __init__(self, H, b_range: int, max_iter: int, dc=None, dv=None, backend=None,
@@ -162,17 +177,19 @@ class QaryDecoder:
         self.max_iter = int(max_iter)
         self.early_exit = bool(early_exit)
         self.device = torch.device(device)
+        lay = self.layout
         if backend is None:
-            if self.device.type == "cuda":
-                backend = "chain" if self.early_exit else "fused"
-            else:
-                backend = "plain"
+            def fits():
+                from .kernels.qary_cuda import MAX_SMEM_BYTES, fused_smem_bytes
+
+                return fused_smem_bytes(lay.n, lay.r, lay.dc, self.q) <= MAX_SMEM_BYTES
+
+            backend = default_backend(self.device, self.early_exit, fits)
         if backend not in BACKENDS:
             raise ValueError(f"unknown q-ary backend {backend!r}; expected one of {BACKENDS}")
         if backend == "fused" and self.early_exit:
             raise ValueError("backend='fused' runs fixed iterations in-kernel")
         self.backend = backend
-        lay = self.layout
         # the adjacency as int32 device arrays, as every backend takes it
         self._args = tuple(
             torch.as_tensor(np.asarray(a, np.int32), device=self.device)

@@ -12,6 +12,7 @@ import re
 import numpy as np
 
 from .qary import QaryDecoder
+from .qary_special import QarySpecialDecoder
 
 _PLAIN = re.compile(r"^DecoderN(\d+)R(\d+)V(\d+)C(\d+)B(\d+)$")
 _SPECIAL = re.compile(r"^DecoderN(\d+)R(\d+)SW(\d+)$")
@@ -21,10 +22,13 @@ def get_decoder_by_name(name, H, iterations, eta=2, **kwargs):
     """Construct the decoder a reference instance name denotes.
 
     - ``DecoderN{n}R{r}V{dv}C{dc}B{b}`` -> :class:`QaryDecoder` (decoder.rs
-      semantics); ``kwargs`` go to it (``backend``, ``device``, ...).
-    - ``DecoderN{n}R{r}SW{sw}`` -> the two-alphabet decoder
-      (decoder_special.rs), which this package does not have yet: raises
-      ``NotImplementedError``.
+      semantics);
+    - ``DecoderN{n}R{r}SW{sw}`` -> :class:`QarySpecialDecoder`, the
+      two-alphabet decoder with B = eta, BSUM = sw*eta (decoder_special.rs
+      semantics; eta = 2 for Kyber-768, the registered instances of
+      lib.rs:53-75).
+
+    ``kwargs`` go to the decoder (``backend``, ``device``, ...).
     """
     H = np.asarray(H, dtype=np.int8)
     m = _PLAIN.match(name)
@@ -33,10 +37,12 @@ def get_decoder_by_name(name, H, iterations, eta=2, **kwargs):
         if H.shape != (r, n):
             raise ValueError(f"{name}: H shape {H.shape} != ({r}, {n})")
         return QaryDecoder(H, b_range=b, max_iter=iterations, dc=dc, dv=dv, **kwargs)
-    if _SPECIAL.match(name):
-        raise NotImplementedError(
-            f"{name}: the two-alphabet QarySpecialDecoder is not ported yet (ROADMAP Slice 6, Kyber)"
-        )
+    m = _SPECIAL.match(name)
+    if m:
+        n, r, sw = map(int, m.groups())
+        if H.shape != (r, n):
+            raise ValueError(f"{name}: H shape {H.shape} != ({r}, {n})")
+        return QarySpecialDecoder(H, b=eta, bsum=sw * eta, max_iter=iterations, sw=sw, **kwargs)
     raise ValueError(f"unrecognized decoder name: {name}")
 
 

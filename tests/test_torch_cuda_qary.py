@@ -117,6 +117,28 @@ def test_decoder_backends_on_the_card(cuda):
     assert torch.equal(QaryDecoder(H, b, 5, early_exit=True, device=cuda).min_sum_llr(llr), ee)
 
 
+def test_default_backend_takes_chain_when_a_frame_does_not_fit(cuda):
+    """R = 1500, DC = 7, Q = 15: one frame's v2c alone is 630,000 B, above the
+    232,448 B a block may use.  The default backend is "chain", chosen at
+    construction, and decodes as "plain" does."""
+    big = make_regular_ldpc_parity_check_matrix_identity(3000, 1500, 3, 6, 1)
+    dec = QaryDecoder(big, 7, 3, device=cuda)
+    assert dec.backend == "chain"
+    llr, _ = _fused_inputs(big, 7, 4, 2, cuda)
+    before = (chain_exclusive_cuda.launches, qary_min_sum_fused_cuda.launches)
+    hard = dec.min_sum_llr(llr)
+    assert (chain_exclusive_cuda.launches, qary_min_sum_fused_cuda.launches) == (before[0] + 3, before[1])
+    assert torch.equal(hard, QaryDecoder(big, 7, 3, backend="plain", device=cuda).min_sum_llr(llr))
+
+
+def test_explicit_fused_backend_raises_when_a_frame_does_not_fit(cuda):
+    big = make_regular_ldpc_parity_check_matrix_identity(3000, 1500, 3, 6, 1)
+    dec = QaryDecoder(big, 7, 3, backend="fused", device=cuda)
+    llr, _ = _fused_inputs(big, 7, 2, 3, cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        dec.min_sum_llr(llr)
+
+
 def test_fer_fused_equals_plain_on_the_same_frames(cuda):
     H = make_regular_ldpc_parity_check_matrix_identity(300, 150, 3, 6, 1)
     runs = [simulate_frame_error_rate_qary(H, 1, 0.005, 300, 7, batch_size=128, backend=be, device=cuda)

@@ -31,6 +31,7 @@ from sca_ldpc_tpu.ops.kernels.qary_pallas import chain_exclusive_pallas, qary_mi
 from sca_ldpc_tpu.sim import simulate_frame_error_rate_qary as jax_fer_qary
 from sca_ldpc_tpu_torch import codes
 from sca_ldpc_tpu_torch.channels import binary_prior_llr, probs_to_llr
+from sca_ldpc_tpu_torch.models.kyber import gen_ldpc_matrix
 from sca_ldpc_tpu_torch.ops import QaryDecoder, decoder_name_for, get_decoder_by_name, minplus
 from sca_ldpc_tpu_torch.ops.kernels.qary_cuda import chain_exclusive_cuda, qary_min_sum_fused_cuda
 from sca_ldpc_tpu_torch.ops.qary import _var_sign_mask
@@ -339,8 +340,9 @@ def test_decoder_registry():
     ch = np.zeros((450, 3), np.float32)
     ch[:, 1] = 1.0
     assert not dec.min_sum(ch).any()
-    with pytest.raises(NotImplementedError, match="Slice 6"):
-        get_decoder_by_name("DecoderN1280R512SW6", np.zeros((512, 1280), np.int8), iterations=3)
+    hk = gen_ldpc_matrix(6, 0, check_blocks=2)
+    deck = get_decoder_by_name("DecoderN1280R512SW6", hk, iterations=3)  # the two-alphabet decoder
+    assert (deck.n, deck.r, deck.sw, deck.b, deck.bsum, deck.backend) == (1280, 512, 6, 2, 12, "plain")
     with pytest.raises(ValueError):
         get_decoder_by_name("DecoderBogus", H, 5)
     with pytest.raises(ValueError):
@@ -398,14 +400,24 @@ def test_qary_modules_run_without_jax():
         import numpy as np
         from sca_ldpc_tpu_torch.channels import probs_to_llr
         from sca_ldpc_tpu_torch.codes import make_regular_ldpc_parity_check_matrix_identity
-        from sca_ldpc_tpu_torch.ops import QaryDecoder, get_decoder_by_name, minplus, registry
+        from sca_ldpc_tpu_torch.ops import QaryDecoder, get_decoder_by_name, minplus, qary_special, registry
         from sca_ldpc_tpu_torch.ops.kernels import qary_cuda
+        from sca_ldpc_tpu_torch.models import kyber
         from sca_ldpc_tpu_torch.sim import simulate_frame_error_rate_qary
         H = make_regular_ldpc_parity_check_matrix_identity(60, 30, 3, 6, 1)
         ch = np.zeros((90, 3), np.float32)
         ch[:, 1] = 1.0
         assert not QaryDecoder(H, 1, 3, backend="fused").min_sum(ch).any()
         assert simulate_frame_error_rate_qary(H, 1, 0.01, 4, 0)[0] <= 4
+        Hk = kyber.gen_ldpc_matrix(6, 0, 1)
+        dec = qary_special.QarySpecialDecoder(Hk, 2, 12, 2, backend="fused")
+        assert get_decoder_by_name("DecoderN1024R256SW6", Hk, 2).sw == 6
+        pb = np.full((768, 5), 0.02, np.float32)
+        pb[:, 2] = 0.92
+        ps = np.zeros((256, 25), np.float32)
+        ps[:, 12] = 1.0
+        assert not dec.min_sum(pb, ps).any()
+        assert kyber.simulate_kyber_attack(7, accuracy=0.995, runs=1)[0]["total_coefficients"] == 768
         leaked = [m for m in sys.modules if m == "sca_ldpc_tpu" or m.startswith("sca_ldpc_tpu.")
                   or (m.startswith("jax") and sys.modules[m] is not None)]
         assert not leaked, leaked
