@@ -10,7 +10,10 @@ reference's "medium decoder" (N = 450, R = 150, DV = 3, DC = 7, B = 7,
 10 iterations) at batch 4096.  Path 3 is the Kyber-768 attack: the
 two-alphabet decoder DecoderN1280R512SW6 (768 secret coefficients in
 [-2..2], 512 check sums in [-12..12], SW = 6, DV = 4) at batch 4096, and the
-fixed-pattern and adaptive attack simulations.
+fixed-pattern and adaptive attack simulations.  Path 4 is the HQC-192 and
+HQC-256 FER step ([circulant(35851, 30) | I] and [circulant(57637, 30) | I],
+bench.py --param-sets) at batch 2048 through K1 and through the lean kernel
+K4, which stores its message planes in bf16 as the TPU's lean kernel does.
 
 Phases (each prints one line; any failure exits non-zero):
   1. build the CUDA kernels from csrc/ (one nvcc per source, in parallel)
@@ -49,7 +52,26 @@ Phases (each prints one line; any failure exits non-zero):
      3 after a warm-up; every frame decodes to the all-zero word);
      simulate_kyber_attack (seed 7, accuracy 0.995, 2 runs) on the card,
      equal to the same call on the CPU with >= 95% of coefficients right;
-     simulate_kyber_attack_adaptive (seed 0, eta = 3) with full recovery.
+     simulate_kyber_attack_adaptive (seed 0, eta = 3) with full recovery;
+ 10. K3 (circulant_bp_lean_cuda) against its plain version at HQC-256
+     (seed 0): 256 frames at error rate 0.01, decisions, flags and
+     iteration counts equal;
+ 11. K4 (circulant_fer_lean_cuda) against its plain version on the same
+     frames (flags equal), and on 512 HQC-128 frames at rate 0.05, 50
+     iterations (success counts within 2% of the frames, as phase 3);
+ 12. K2 on the HQC-128 circulant without the identity block
+     (with_identity=False) against its plain version through
+     CirculantBPDecoder: 512 frames, product-sum and min-sum, decisions
+     equal;
+ 13. path 4 through the public API, with the launch counts reset before and
+     read after: fer_simulation at batch 2048, rate 0.01, 30 iterations, on
+     HQC-192 (backend "fused", K1) and HQC-256 (backends "fused" and
+     "lean"), frames/s best of 3 after a warm-up, success rate >= 0.999,
+     peak device memory; and the lean decode API (circulant_bp_lean_cuda)
+     on 2048 device-sampled HQC-256 frames;
+ 14. K1 against K4 on the same 8192 device-sampled HQC-128 frames at rates
+     0.03 and 0.05, 50 iterations: success counts side by side (f32 against
+     bf16 message planes; reported, not gated).
 
 Then one JSON line of per-kernel results, and as the last line
 {"ok": true, "device": {...}}.  Run from the repository root:
@@ -69,10 +91,13 @@ import torch
 N, W, ERR, MAX_ITER = 17669, 20, 0.01, 30
 CMP_FRAMES = 512
 BATCH, BATCHES = 4096, 5
-SOURCES = ("circulant_bp", "qary_min_sum")
+SOURCES = ("circulant_bp", "qary_min_sum", "circulant_lean")
 QB, QITER = 7, 10  # medium decoder: B, iterations
 FER_B, FER_RATE, FER_ITER, FER_BATCHES = 1, 0.005, 5, 4
 KY_SW, KY_ITER = 6, 10  # Kyber-768 decoder: sum weight, iterations
+N192, N256, W_BIG = 35851, 57637, 30  # HQC-192 and HQC-256 attack codes (bench.py:305-308)
+LEAN_FRAMES, PS_BATCH, PS_BATCHES = 256, 2048, 2
+BF16_FRAMES, BF16_ITER = 8192, 50
 
 
 def _card():
@@ -268,6 +293,7 @@ def main():
 
     qary = _qary_phases(dev, tag, lib_paths["qary_min_sum"])
     kyber = _kyber_phases(dev, tag)
+    lean = _lean_phases(dev, tag, lib_paths["circulant_lean"], lay)
 
     src = "sca_ldpc_tpu_torch/csrc/circulant_bp.cu"
     print(json.dumps({"kernels": [
@@ -281,6 +307,7 @@ def main():
          "ms": results["bp_ms"], "plain_ms": results["bp_plain_ms"]},
         *qary,
         *kyber,
+        *lean,
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
@@ -520,6 +547,161 @@ def _kyber_phases(dev, tag):
          "replaces": "sca_ldpc_tpu/ops/kernels/qary_pallas.py:414",
          "launches": launches["qary_special_min_sum_fused_cuda"], "max_abs_err": max(k7[2][0], k7[3][0]),
          "ms": k7[2][1], "plain_ms": k7[2][2]},
+    ]
+
+
+def _hqc_code(n):
+    from sca_ldpc_tpu_torch.codes import CirculantLayout, random_circulant_first_row
+    from sca_ldpc_tpu_torch.utils import make_random_state
+
+    lay = CirculantLayout.from_first_row(random_circulant_first_row(n, W_BIG, make_random_state(0)), True)
+    if lay.n != n or lay.weight != W_BIG:
+        raise SystemExit(f"HQC code has n={lay.n} w={lay.weight}, expected {n}, {W_BIG}")
+    return lay
+
+
+def _lean_phases(dev, tag, lib_path, lay128):
+    """Phases 10-14; returns the lean kernels' entries of the JSON line."""
+    from sca_ldpc_tpu_torch.codes import CirculantLayout
+    from sca_ldpc_tpu_torch.ops import CirculantBPDecoder
+    from sca_ldpc_tpu_torch.ops.kernels import (
+        circulant_bp_cuda,
+        circulant_bp_lean_cuda,
+        circulant_bp_lean_plain,
+        circulant_fer_cuda,
+        circulant_fer_lean_cuda,
+        circulant_fer_lean_plain,
+        circulant_bp_plain,
+    )
+    from sca_ldpc_tpu_torch.parallel import fer_simulation
+    from sca_ldpc_tpu_torch.utils import make_random_state, rng_to_torch_generator
+
+    rng = np.random.RandomState(2468)
+    lay256 = _hqc_code(N256)
+    n = lay256.n
+
+    # ---- phase 10: K3 against its plain version at HQC-256
+    print(f"phase 10 build: {lib_path.name}; ptxas: {' | '.join(_ptxas(lib_path))}")
+    err = torch.from_numpy((rng.random_sample((LEAN_FRAMES, 2 * n)) < ERR).astype(np.uint8)).to(dev)
+    syn = (sum(torch.roll(err[:, :n].int(), k, dims=-1) for k in lay256.shifts) + err[:, n:]) % 2
+    prior = torch.full((LEAN_FRAMES, n), float(np.log((1 - ERR) / ERR)), dtype=torch.float32, device=dev)
+    k3_args = (prior, prior, syn, lay256.shifts, MAX_ITER)
+    e_k, conv_k, it_k = circulant_bp_lean_cuda(*k3_args)
+    e_p, conv_p, it_p = circulant_bp_lean_plain(*k3_args)
+    torch.cuda.synchronize()
+    k3_err = int((e_k - e_p).abs().max())
+    same = torch.equal(e_k, e_p) and torch.equal(conv_k, conv_p) and torch.equal(it_k, it_p)
+    recovered = int((e_k == err).all(dim=-1).sum())
+    k3_ms = _ms(lambda: circulant_bp_lean_cuda(*k3_args))
+    k3_plain_ms = _ms(lambda: circulant_bp_lean_plain(*k3_args))
+    print(f"phase 10 K3 HQC-256 N={n} w={W_BIG}, {LEAN_FRAMES} frames at {ERR}: decisions, conv and iters equal "
+          f"to plain: {same}; recovered {recovered}/{LEAN_FRAMES}; iterations mean {float(it_k.float().mean()):.3f} "
+          f"max {int(it_k.max())}; kernel {k3_ms:.3f} ms, plain {k3_plain_ms:.3f} ms {tag}")
+    if not same:
+        raise SystemExit("K3: kernel and plain version disagree")
+    if recovered != LEAN_FRAMES:
+        raise SystemExit("K3: not every HQC-256 frame recovered at error rate 0.01")
+
+    # ---- phase 11: K4 against its plain version
+    ok_k, conv_k = circulant_fer_lean_cuda(err, lay256.shifts, ERR, MAX_ITER)
+    ok_p, conv_p = circulant_fer_lean_plain(err, lay256.shifts, ERR, MAX_ITER)
+    torch.cuda.synchronize()
+    k4_err = int((ok_k.int() - ok_p.int()).abs().max())
+    same = torch.equal(ok_k, ok_p) and torch.equal(conv_k, conv_p)
+    k4_ms = _ms(lambda: circulant_fer_lean_cuda(err, lay256.shifts, ERR, MAX_ITER))
+    k4_plain_ms = _ms(lambda: circulant_fer_lean_plain(err, lay256.shifts, ERR, MAX_ITER))
+    print(f"phase 11 K4 HQC-256, the same {LEAN_FRAMES} frames: flags equal to plain: {same}; successes "
+          f"{int(ok_k.sum())}; kernel {k4_ms:.3f} ms, plain {k4_plain_ms:.3f} ms {tag}")
+    if not same:
+        raise SystemExit("K4: success or convergence flags differ from the plain version at rate 0.01")
+    e_t = torch.from_numpy(_errors(rng, CMP_FRAMES, 0.05)).to(dev)
+    ok_k, _ = circulant_fer_lean_cuda(e_t, lay128.shifts, 0.05, BF16_ITER)
+    ok_p, _ = circulant_fer_lean_plain(e_t, lay128.shifts, 0.05, BF16_ITER)
+    nk, npl = int(ok_k.sum()), int(ok_p.sum())
+    print(f"phase 11 K4 HQC-128 rate 0.05, {BF16_ITER} iterations: successes kernel {nk} plain {npl} of "
+          f"{CMP_FRAMES}; flags differ on {int((ok_k != ok_p).sum())} frames")
+    if abs(nk - npl) > 0.02 * CMP_FRAMES:
+        raise SystemExit("K4: success counts differ by more than 2% at rate 0.05")
+
+    # ---- phase 12: K2 without the identity block
+    lay_c = CirculantLayout(n=lay128.n, shifts=lay128.shifts, with_identity=False)
+    e_c = torch.from_numpy((rng.random_sample((CMP_FRAMES, N)) < ERR).astype(np.uint8)).to(dev)
+    syn_c = sum(torch.roll(e_c.int(), k, dims=-1) for k in lay_c.shifts) % 2
+    probs = torch.full((N,), ERR, dtype=torch.float32, device=dev)
+    zeros = torch.zeros((CMP_FRAMES, N), dtype=torch.float32, device=dev)
+    launches = circulant_bp_cuda.launches
+    for method in ("product_sum", "min_sum"):
+        dec = CirculantBPDecoder(lay_c, max_iter=MAX_ITER, method=method, device=dev)
+        e_k, conv_k = dec.decode_syndrome(syn_c, probs, return_aux=True)[:2]
+        pr = dec._to_llr(probs, N, CMP_FRAMES).contiguous()
+        e_p, conv_p, _ = circulant_bp_plain(pr, zeros, syn_c, lay_c.shifts, MAX_ITER, method, with_identity=False)
+        torch.cuda.synchronize()
+        same = torch.equal(e_k, e_p) and torch.equal(conv_k, conv_p)
+        recovered = int((e_k == e_c).all(dim=-1).sum())
+        print(f"phase 12 K2 {method} on circulant({N}, {W}) without the identity, {CMP_FRAMES} frames: decisions "
+              f"{tuple(e_k.shape)} equal to plain: {same}; recovered {recovered}; converged {int(conv_k.sum())}")
+        if not same:
+            raise SystemExit(f"K2 {method} without the identity: kernel and plain version disagree")
+    if circulant_bp_cuda.launches != launches + 2:
+        raise SystemExit("K2 without the identity did not launch the kernel")
+
+    # ---- phase 13: path 4 through the public API
+    torch.cuda.synchronize()
+    circulant_fer_cuda.launches = 0
+    circulant_fer_lean_cuda.launches = 0
+    circulant_bp_lean_cuda.launches = 0
+    frames = PS_BATCH * PS_BATCHES
+    for name, lay_b, backend in (("HQC-192", _hqc_code(N192), "fused"), ("HQC-256", lay256, "fused"),
+                                 ("HQC-256", lay256, "lean")):
+        torch.cuda.reset_peak_memory_stats(dev)
+        gen = rng_to_torch_generator(make_random_state(0), dev)
+        probs_np = np.full(lay_b.n_vars, ERR, np.float32)
+        best, (successes, done) = _best_s(lambda: fer_simulation(
+            lay_b, probs_np, frames, gen, dev, batch=PS_BATCH, max_iter=MAX_ITER, backend=backend))
+        peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+        print(f"phase 13 {name} N={lay_b.n} w={lay_b.weight} fer_simulation backend {backend}: {frames} frames "
+              f"(batch {PS_BATCH}): success {successes / done:.6f}, {frames / best:.1f} frames/s (best of 3); "
+              f"peak memory {peak_gb:.2f} GB {tag}")
+        if done != frames or successes / done < 0.999:
+            raise SystemExit(f"{name} {backend}: success {successes}/{done} < 0.999")
+    gen = rng_to_torch_generator(make_random_state(1), dev)
+    z = (torch.rand((PS_BATCH, 2 * n), generator=gen, device=dev) < ERR).to(torch.uint8)
+    syn = (sum(torch.roll(z[:, :n].int(), k, dims=-1) for k in lay256.shifts) + z[:, n:]) % 2
+    prior = torch.full((PS_BATCH, n), float(np.log((1 - ERR) / ERR)), dtype=torch.float32, device=dev)
+    e_hat, conv, iters = circulant_bp_lean_cuda(prior, prior, syn, lay256.shifts, MAX_ITER)
+    torch.cuda.synchronize()
+    recovered = int((e_hat == z).all(dim=-1).sum())
+    launches = {"circulant_fer_cuda": circulant_fer_cuda.launches,
+                "circulant_fer_lean_cuda": circulant_fer_lean_cuda.launches,
+                "circulant_bp_lean_cuda": circulant_bp_lean_cuda.launches}
+    print(f"phase 13 HQC-256 lean decode API: {recovered}/{PS_BATCH} recovered, iterations mean "
+          f"{float(iters.float().mean()):.3f}; launches {launches}")
+    if recovered / PS_BATCH < 0.999:
+        raise SystemExit(f"lean decode recovered {recovered}/{PS_BATCH}")
+    if min(launches.values()) <= 0:
+        raise SystemExit(f"a kernel of path 4 was not launched: {launches}")
+
+    # ---- phase 14: f32 (K1) against bf16 (K4) message planes, same frames
+    gen = rng_to_torch_generator(make_random_state(2), dev)
+    for rate in (0.03, 0.05):
+        e_t = (torch.rand((BF16_FRAMES, lay128.n_vars), generator=gen, device=dev) < rate).to(torch.uint8)
+        ok_1, conv_1 = circulant_fer_cuda(e_t, lay128.shifts, rate, BF16_ITER)
+        ok_4, conv_4 = circulant_fer_lean_cuda(e_t, lay128.shifts, rate, BF16_ITER)
+        torch.cuda.synchronize()
+        print(f"phase 14 HQC-128 rate {rate}, {BF16_ITER} iterations, {BF16_FRAMES} frames: successes K1 (f32) "
+              f"{int(ok_1.sum())}, K4 (bf16) {int(ok_4.sum())}; converged {int(conv_1.sum())} / "
+              f"{int(conv_4.sum())}; only K1 {int((ok_1 & ~ok_4).sum())}, only K4 {int((ok_4 & ~ok_1).sum())}")
+
+    src = "sca_ldpc_tpu_torch/csrc/circulant_lean.cu"
+    return [
+        {"name": "circulant_bp_lean_cuda", "route": "cuda", "source": src,
+         "replaces": "sca_ldpc_tpu/ops/kernels/circulant_pallas.py:503",
+         "launches": launches["circulant_bp_lean_cuda"], "max_abs_err": k3_err, "ms": k3_ms,
+         "plain_ms": k3_plain_ms},
+        {"name": "circulant_fer_lean_cuda", "route": "cuda", "source": src,
+         "replaces": "sca_ldpc_tpu/ops/kernels/circulant_pallas.py:620",
+         "launches": launches["circulant_fer_lean_cuda"], "max_abs_err": k4_err, "ms": k4_ms,
+         "plain_ms": k4_plain_ms},
     ]
 
 

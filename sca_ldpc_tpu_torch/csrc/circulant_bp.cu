@@ -7,7 +7,9 @@
 // and computes exactly what the JAX package's ops/circulant_bp.py
 // _circulant_bp computes: product-sum or normalized min-sum (alpha 0.75),
 // messages clipped at +-60 after the first iteration, each frame's first
-// converged estimate kept, and per-frame early exit.
+// converged estimate kept, and per-frame early exit.  The decode API also
+// takes H = circulant(N, w) alone (with_identity = 0: no identity plane and
+// no identity parity term; decisions [B, N]), as the JAX decoder does.
 //
 // Design.  The TPU kernel keeps a tile of frames in VMEM for all iterations.
 // A Hopper SM has 227 KB of shared memory, and one HQC-128 frame's message
@@ -69,9 +71,9 @@ __global__ void __launch_bounds__(kThreads) circulant_bp_kernel(
     const float* __restrict__ prior_c, const float* __restrict__ prior_i, float prior_const,
     const uint8_t* __restrict__ errors,  // [B, 2N] true errors (FER step) or nullptr
     uint8_t* __restrict__ syn,           // [B, N] syndrome (written here for the FER step)
-    const int* __restrict__ shifts, int w, int n, int max_iter,
+    const int* __restrict__ shifts, int w, int n, int max_iter, bool with_id,
     float* __restrict__ c2v, float* __restrict__ tot,
-    uint8_t* __restrict__ e_out,  // [B, 2N] decisions
+    uint8_t* __restrict__ e_out,  // [B, 2N] decisions ([B, N] without the identity)
     uint8_t* __restrict__ conv_out, uint8_t* __restrict__ ok_out, int* __restrict__ iters_out) {
   __shared__ int k_s[MAXW];
   const int b = blockIdx.x;
@@ -82,7 +84,7 @@ __global__ void __launch_bounds__(kThreads) circulant_bp_kernel(
   float* c2v_b = c2v + fn * w;
   float* tot_b = tot + fn;
   uint8_t* syn_b = syn + fn;
-  uint8_t* e_b = e_out + 2 * fn;
+  uint8_t* e_b = e_out + (with_id ? 2 : 1) * fn;
   const uint8_t* err_b = errors ? errors + 2 * fn : nullptr;
   __syncthreads();
 
@@ -99,7 +101,7 @@ __global__ void __launch_bounds__(kThreads) circulant_bp_kernel(
       syn_b[i] = static_cast<uint8_t>(s & 1);
     }
     e_b[i] = f.pc(i) < 0.0f;
-    e_b[n + i] = f.pi(i) < 0.0f;
+    if (with_id) e_b[n + i] = f.pi(i) < 0.0f;
   }
   __syncthreads();
 
@@ -112,8 +114,8 @@ __global__ void __launch_bounds__(kThreads) circulant_bp_kernel(
     for (int i = threadIdx.x; i < n; i += blockDim.x) {
       float m[MAXW];  // phi(|v2c|) (product-sum) or |v2c| (min-sum)
       unsigned long long neg = 0;  // sign bits of the w incoming messages
-      const float p_i = f.pi(i);
-      const bool neg_i = p_i < 0.0f;
+      const float p_i = with_id ? f.pi(i) : 0.0f;
+      const bool neg_i = with_id && p_i < 0.0f;
       int parity = syn_b[i] ^ static_cast<int>(neg_i);
       const float m_i = MIN_SUM ? fabsf(p_i) : phi(fabsf(p_i));
       float acc = 0.0f, min1 = INFINITY, min2 = INFINITY;
@@ -147,7 +149,7 @@ __global__ void __launch_bounds__(kThreads) circulant_bp_kernel(
         }
       }
       // the identity plane (degree-1 variable: always its prior)
-      if (MIN_SUM) {
+      if (with_id && MIN_SUM) {
         if (m_i < min1) {
           min2 = min1;
           min1 = m_i;
@@ -157,7 +159,7 @@ __global__ void __launch_bounds__(kThreads) circulant_bp_kernel(
         } else {
           min2 = fminf(min2, m_i);
         }
-      } else {
+      } else if (with_id) {
         acc += m_i;
       }
 #pragma unroll
@@ -174,15 +176,17 @@ __global__ void __launch_bounds__(kThreads) circulant_bp_kernel(
           c2v_b[static_cast<size_t>(t) * n + i] = ng ? -ext : ext;
         }
       }
-      float ext_i;
-      if (MIN_SUM) {
-        ext_i = (m_i == min1 && cnt == 1) ? min2 : min1;
-        ext_i = kMinSumAlpha * fminf(ext_i, kBig);
-      } else {
-        ext_i = phi(fmaxf(acc - m_i, 1e-9f));
+      if (with_id) {
+        float ext_i;
+        if (MIN_SUM) {
+          ext_i = (m_i == min1 && cnt == 1) ? min2 : min1;
+          ext_i = kMinSumAlpha * fminf(ext_i, kBig);
+        } else {
+          ext_i = phi(fmaxf(acc - m_i, 1e-9f));
+        }
+        const float tot_i = p_i + ((parity ^ static_cast<int>(neg_i)) ? -ext_i : ext_i);
+        e_b[n + i] = tot_i < 0.0f;
       }
-      const float tot_i = p_i + ((parity ^ static_cast<int>(neg_i)) ? -ext_i : ext_i);
-      e_b[n + i] = tot_i < 0.0f;
     }
     __syncthreads();
 
@@ -203,7 +207,7 @@ __global__ void __launch_bounds__(kThreads) circulant_bp_kernel(
     // ---- convergence: syndrome of the decisions against the input syndrome
     int bad = 0;
     for (int i = threadIdx.x; i < n; i += blockDim.x) {
-      int s = e_b[n + i];
+      int s = with_id ? e_b[n + i] : 0;
       for (int t = 0; t < w; ++t) {
         int j = i - k_s[t];
         j += (j < 0) ? n : 0;
@@ -230,23 +234,23 @@ __global__ void __launch_bounds__(kThreads) circulant_bp_kernel(
 template <int MAXW>
 void launch_w(bool min_sum, int batch, cudaStream_t stream, const float* prior_c, const float* prior_i,
               float prior_const, const uint8_t* errors, uint8_t* syn, const int* shifts, int w, int n,
-              int max_iter, float* c2v, float* tot, uint8_t* e_out, uint8_t* conv_out, uint8_t* ok_out,
-              int* iters_out) {
+              int max_iter, bool with_id, float* c2v, float* tot, uint8_t* e_out, uint8_t* conv_out,
+              uint8_t* ok_out, int* iters_out) {
   if (min_sum) {
     circulant_bp_kernel<MAXW, true><<<batch, kThreads, 0, stream>>>(
-        prior_c, prior_i, prior_const, errors, syn, shifts, w, n, max_iter, c2v, tot, e_out, conv_out, ok_out,
-        iters_out);
+        prior_c, prior_i, prior_const, errors, syn, shifts, w, n, max_iter, with_id, c2v, tot, e_out, conv_out,
+        ok_out, iters_out);
   } else {
     circulant_bp_kernel<MAXW, false><<<batch, kThreads, 0, stream>>>(
-        prior_c, prior_i, prior_const, errors, syn, shifts, w, n, max_iter, c2v, tot, e_out, conv_out, ok_out,
-        iters_out);
+        prior_c, prior_i, prior_const, errors, syn, shifts, w, n, max_iter, with_id, c2v, tot, e_out, conv_out,
+        ok_out, iters_out);
   }
 }
 
 int launch(int method, int batch, void* stream_ptr, const float* prior_c, const float* prior_i,
            float prior_const, const uint8_t* errors, uint8_t* syn, const int* shifts, int w, int n,
-           int max_iter, float* c2v, float* tot, uint8_t* e_out, uint8_t* conv_out, uint8_t* ok_out,
-           int* iters_out) {
+           int max_iter, bool with_id, float* c2v, float* tot, uint8_t* e_out, uint8_t* conv_out,
+           uint8_t* ok_out, int* iters_out) {
   if (w < 1 || w > kMaxW || n < 1 || batch < 0 || max_iter < 0 || (method != 0 && method != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -254,17 +258,17 @@ int launch(int method, int batch, void* stream_ptr, const float* prior_c, const 
   const bool ms = method == 1;
   auto stream = static_cast<cudaStream_t>(stream_ptr);
   if (w <= 8) {
-    launch_w<8>(ms, batch, stream, prior_c, prior_i, prior_const, errors, syn, shifts, w, n, max_iter, c2v,
-                tot, e_out, conv_out, ok_out, iters_out);
+    launch_w<8>(ms, batch, stream, prior_c, prior_i, prior_const, errors, syn, shifts, w, n, max_iter,
+                with_id, c2v, tot, e_out, conv_out, ok_out, iters_out);
   } else if (w <= 16) {
-    launch_w<16>(ms, batch, stream, prior_c, prior_i, prior_const, errors, syn, shifts, w, n, max_iter, c2v,
-                 tot, e_out, conv_out, ok_out, iters_out);
+    launch_w<16>(ms, batch, stream, prior_c, prior_i, prior_const, errors, syn, shifts, w, n, max_iter,
+                 with_id, c2v, tot, e_out, conv_out, ok_out, iters_out);
   } else if (w <= 32) {
-    launch_w<32>(ms, batch, stream, prior_c, prior_i, prior_const, errors, syn, shifts, w, n, max_iter, c2v,
-                 tot, e_out, conv_out, ok_out, iters_out);
+    launch_w<32>(ms, batch, stream, prior_c, prior_i, prior_const, errors, syn, shifts, w, n, max_iter,
+                 with_id, c2v, tot, e_out, conv_out, ok_out, iters_out);
   } else {
-    launch_w<64>(ms, batch, stream, prior_c, prior_i, prior_const, errors, syn, shifts, w, n, max_iter, c2v,
-                 tot, e_out, conv_out, ok_out, iters_out);
+    launch_w<64>(ms, batch, stream, prior_c, prior_i, prior_const, errors, syn, shifts, w, n, max_iter,
+                 with_id, c2v, tot, e_out, conv_out, ok_out, iters_out);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -272,16 +276,18 @@ int launch(int method, int batch, void* stream_ptr, const float* prior_c, const 
 }  // namespace
 
 // Decode API (replaces circulant_bp_pallas).  method: 0 product-sum, 1 min-sum.
-// prior_c, prior_i [B, N] f32; syndrome [B, N] 0/1; shifts [w] int32 in [0, N).
-// Scratch c2v [B, w, N] f32 and tot [B, N] f32 need no initialisation.
-// Out: e [B, 2N] 0/1, conv [B], iters [B] (may be null).  Returns a cudaError_t.
+// prior_c, prior_i [B, N] f32 (prior_i not read without the identity);
+// syndrome [B, N] 0/1; shifts [w] int32 in [0, N); with_identity 1 for
+// [circulant | I], 0 for the circulant alone.  Scratch c2v [B, w, N] f32 and
+// tot [B, N] f32 need no initialisation.  Out: e [B, 2N] 0/1 ([B, N] without
+// the identity), conv [B], iters [B] (may be null).  Returns a cudaError_t.
 extern "C" int circulant_bp_decode(const float* prior_c, const float* prior_i, uint8_t* syndrome,
                                    const int* shifts, int w, int n, int batch, int max_iter, int method,
-                                   float* c2v, float* tot, uint8_t* e_out, uint8_t* conv_out, int* iters_out,
-                                   void* stream) {
+                                   int with_identity, float* c2v, float* tot, uint8_t* e_out, uint8_t* conv_out,
+                                   int* iters_out, void* stream) {
   if (prior_c == nullptr || prior_i == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  return launch(method, batch, stream, prior_c, prior_i, 0.0f, nullptr, syndrome, shifts, w, n, max_iter, c2v,
-                tot, e_out, conv_out, nullptr, iters_out);
+  return launch(method, batch, stream, prior_c, prior_i, 0.0f, nullptr, syndrome, shifts, w, n, max_iter,
+                with_identity != 0, c2v, tot, e_out, conv_out, nullptr, iters_out);
 }
 
 // FER step (replaces circulant_fer_pallas): errors [B, 2N] 0/1 in; the
@@ -291,6 +297,6 @@ extern "C" int circulant_fer_step(const uint8_t* errors, float prior, const int*
                                   int max_iter, int method, float* c2v, float* tot, uint8_t* syn,
                                   uint8_t* e_scratch, uint8_t* ok_out, uint8_t* conv_out, void* stream) {
   if (errors == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  return launch(method, batch, stream, nullptr, nullptr, prior, errors, syn, shifts, w, n, max_iter, c2v, tot,
-                e_scratch, conv_out, ok_out, nullptr);
+  return launch(method, batch, stream, nullptr, nullptr, prior, errors, syn, shifts, w, n, max_iter, true, c2v,
+                tot, e_scratch, conv_out, ok_out, nullptr);
 }

@@ -136,8 +136,8 @@ class CirculantBPDecoder:
     """Batched syndrome BP decoder over a :class:`CirculantLayout`.
 
     Inputs (numpy arrays or tensors) are placed on ``device``.  On a CUDA
-    device a ``[circulant | I]`` layout decodes with the CUDA kernel; on the
-    CPU the plain PyTorch version runs.
+    device the layout, with or without the identity block, decodes with the
+    CUDA kernel; on the CPU the plain PyTorch version runs.
     """
 
     def __init__(self, layout: CirculantLayout, max_iter=50, method="product_sum", device="cpu"):
@@ -165,11 +165,11 @@ class CirculantBPDecoder:
         else:
             prior_i = torch.zeros((b, lay.n), dtype=torch.float32, device=self.device)
         if self.device.type == "cuda":
-            if not lay.with_identity:
-                raise ValueError("the CUDA decoder requires a [circulant | I] layout")
             from .kernels.circulant_cuda import circulant_bp_cuda
 
-            e, conv, iters = circulant_bp_cuda(prior_c, prior_i, syn, lay.shifts, self.max_iter, self.method)
+            e, conv, iters = circulant_bp_cuda(
+                prior_c, prior_i, syn, lay.shifts, self.max_iter, self.method, lay.with_identity
+            )
             it = _batch_iterations(iters)
         else:
             e, conv, it = _circulant_bp(

@@ -6,15 +6,21 @@ Counterparts of ``sca_ldpc_tpu/ops/kernels/circulant_pallas.py``:
   decisions out;
 - :func:`circulant_fer_cuda` (``circulant_fer_pallas``): true error bits in,
   success and convergence flags out, with the syndrome, decode and comparison
-  on the card.
+  on the card;
+- :func:`circulant_bp_lean_cuda` (``circulant_bp_pallas_lean``) and
+  :func:`circulant_fer_lean_cuda` (``circulant_fer_pallas_lean``): the same
+  two entry points over the lean decode, which stores its v2c and c2v
+  planes in bf16 at the TPU kernel's rounding points (product-sum only).
 
-Both launch ``csrc/circulant_bp.cu`` (built with ``nvcc`` at first use, see
-``_build.py``) for CUDA tensors, and run the plain version beside them for
+The first two launch ``csrc/circulant_bp.cu``, the lean pair
+``csrc/circulant_lean.cu`` (built with ``nvcc`` at first use, see
+``_build.py``), for CUDA tensors, and run the plain version beside them for
 CPU tensors.  There is no fallback: a CUDA tensor that the kernel cannot take
 raises.  Each wrapper counts its kernel launches in ``.launches``.
 
-Unlike the TPU kernels, the batch need not be a multiple of a tile, messages
-are f32 (the TPU kernels store bf16), and the shifts are runtime data.
+Unlike the TPU kernels, the batch need not be a multiple of a tile and the
+shifts are runtime data.  K1/K2 keep f32 messages (their TPU kernels store
+bf16 v2c); the lean kernels keep the TPU kernel's bf16 planes.
 """
 
 import ctypes
@@ -23,7 +29,7 @@ import functools
 import numpy as np
 import torch
 
-from ..circulant_bp import _circulant_bp_frames
+from ..circulant_bp import _BIG, _circulant_bp_frames, _phi
 
 _METHODS = {"product_sum": 0, "min_sum": 1}
 _MAX_W = 64
@@ -36,10 +42,23 @@ def _lib():
 
     lib = load("circulant_bp")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.circulant_bp_decode.argtypes = [p, p, p, p, i, i, i, i, i, p, p, p, p, p, p]
+    lib.circulant_bp_decode.argtypes = [p, p, p, p, i, i, i, i, i, i, p, p, p, p, p, p]
     lib.circulant_bp_decode.restype = i
     lib.circulant_fer_step.argtypes = [p, f, p, i, i, i, i, i, p, p, p, p, p, p, p]
     lib.circulant_fer_step.restype = i
+    return lib
+
+
+@functools.cache
+def _lean_lib():
+    from ._build import load
+
+    lib = load("circulant_lean")
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.circulant_bp_lean_decode.argtypes = [p, p, p, p, i, i, i, i, p, p, p, p, p, p, p, p, p]
+    lib.circulant_bp_lean_decode.restype = i
+    lib.circulant_fer_lean_step.argtypes = [p, f, p, i, i, i, i, p, p, p, p, p, p, p, p, p, p]
+    lib.circulant_fer_lean_step.restype = i
     return lib
 
 
@@ -67,25 +86,14 @@ def _check_args(shifts, n, max_iter, method):
     return shifts
 
 
-def _cuda_stream(device):
-    if device.type != "cuda":
-        raise ValueError(f"the kernels run on CUDA or (plain version) CPU tensors, not {device}")
-    return torch.cuda.current_stream(device).cuda_stream
+def _check_lean_args(shifts, n, max_iter, method):
+    if method != "product_sum":
+        raise ValueError(f"the lean kernels are product-sum only, not {method!r}")
+    return _check_args(shifts, n, max_iter, method)
 
 
-def circulant_bp_plain(prior_c, prior_i, syndrome, shifts, max_iter, method="min_sum"):
-    """Plain PyTorch version of :func:`circulant_bp_cuda`, on any device."""
-    return _circulant_bp_frames(prior_c, prior_i, syndrome, tuple(shifts), True, int(max_iter), method)
-
-
-def circulant_bp_cuda(prior_c, prior_i, syndrome, shifts, max_iter, method="min_sum"):
-    """Decode [B, N] syndromes of ``[circulant | I]``.
-
-    prior_c, prior_i: [B, N] float32 LLRs; syndrome: [B, N] 0/1 (integer or
-    bool); shifts: the circulant's support offsets.  Returns (e [B, 2N] int32,
-    conv [B] bool, iters [B] int32), ``iters`` being the iteration at which
-    each frame first converged, or the number run if it never did.
-    """
+def _check_decode(prior_c, prior_i, syndrome):
+    """Checks the decode inputs; returns (device, B, N)."""
     device = prior_c.device
     if prior_c.ndim != 2:
         raise ValueError(f"prior_c must be [B, N], got shape {tuple(prior_c.shape)}")
@@ -93,9 +101,58 @@ def circulant_bp_cuda(prior_c, prior_i, syndrome, shifts, max_iter, method="min_
     _check(prior_c, "prior_c", (b, n), (torch.float32,), device)
     _check(prior_i, "prior_i", (b, n), (torch.float32,), device)
     _check(syndrome, "syndrome", (b, n), _INT_DTYPES, device)
+    return device, b, n
+
+
+def _check_fer(errors, error_rate):
+    """Checks the FER-step inputs; returns (device, B, N)."""
+    device = errors.device
+    if errors.ndim != 2 or errors.shape[1] % 2:
+        raise ValueError(f"errors must be [B, 2N], got shape {tuple(errors.shape)}")
+    b, n2 = errors.shape
+    _check(errors, "errors", (b, n2), _INT_DTYPES, device)
+    if not 0.0 < error_rate < 1.0:
+        raise ValueError(f"error_rate {error_rate} outside (0, 1)")
+    return device, b, n2 // 2
+
+
+def _syndrome_and_prior(errors, shifts, error_rate):
+    """The FER step's syndrome [B, N] of [B, 2N] error bits and its uniform
+    prior LLR ``log((1 - p) / p)``, as a [B, N] float32 tensor."""
+    b, n2 = errors.shape
+    n = n2 // 2
+    e = errors.to(torch.int32)
+    syn = (sum(torch.roll(e[:, :n], k, dims=-1) for k in shifts) + e[:, n:]) % 2
+    prior = float(np.log((1 - error_rate) / error_rate))
+    return syn, torch.full((b, n), prior, dtype=torch.float32, device=errors.device)
+
+
+def _cuda_stream(device):
+    if device.type != "cuda":
+        raise ValueError(f"the kernels run on CUDA or (plain version) CPU tensors, not {device}")
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def circulant_bp_plain(prior_c, prior_i, syndrome, shifts, max_iter, method="min_sum", with_identity=True):
+    """Plain PyTorch version of :func:`circulant_bp_cuda`, on any device."""
+    return _circulant_bp_frames(prior_c, prior_i, syndrome, tuple(shifts), with_identity, int(max_iter), method)
+
+
+def circulant_bp_cuda(prior_c, prior_i, syndrome, shifts, max_iter, method="min_sum", with_identity=True):
+    """Decode [B, N] syndromes of ``[circulant | I]``, or of the circulant
+    alone with ``with_identity=False``.
+
+    prior_c, prior_i: [B, N] float32 LLRs (``prior_i`` is not read without
+    the identity); syndrome: [B, N] 0/1 (integer or bool); shifts: the
+    circulant's support offsets.  Returns (e [B, 2N] int32, or [B, N] without
+    the identity, conv [B] bool, iters [B] int32), ``iters`` being the
+    iteration at which each frame first converged, or the number run if it
+    never did.
+    """
+    device, b, n = _check_decode(prior_c, prior_i, syndrome)
     shifts = _check_args(shifts, n, max_iter, method)
     if device.type == "cpu":
-        return circulant_bp_plain(prior_c, prior_i, syndrome, shifts, max_iter, method)
+        return circulant_bp_plain(prior_c, prior_i, syndrome, shifts, max_iter, method, with_identity)
 
     stream = _cuda_stream(device)
     w = len(shifts)
@@ -104,13 +161,13 @@ def circulant_bp_cuda(prior_c, prior_i, syndrome, shifts, max_iter, method="min_
         k = torch.tensor(shifts, dtype=torch.int32, device=device)
         c2v = torch.empty((b, w, n), dtype=torch.float32, device=device)
         tot = torch.empty((b, n), dtype=torch.float32, device=device)
-        e = torch.empty((b, 2 * n), dtype=torch.uint8, device=device)
+        e = torch.empty((b, 2 * n if with_identity else n), dtype=torch.uint8, device=device)
         conv = torch.empty((b,), dtype=torch.uint8, device=device)
         iters = torch.empty((b,), dtype=torch.int32, device=device)
         if b:
             rc = _lib().circulant_bp_decode(
                 prior_c.data_ptr(), prior_i.data_ptr(), syn.data_ptr(), k.data_ptr(),
-                w, n, b, int(max_iter), _METHODS[method],
+                w, n, b, int(max_iter), _METHODS[method], int(bool(with_identity)),
                 c2v.data_ptr(), tot.data_ptr(), e.data_ptr(), conv.data_ptr(), iters.data_ptr(),
                 stream,
             )
@@ -125,29 +182,17 @@ circulant_bp_cuda.launches = 0
 
 def circulant_fer_plain(errors, shifts, error_rate, max_iter, method="product_sum"):
     """Plain PyTorch version of :func:`circulant_fer_cuda`, on any device."""
-    b, n2 = errors.shape
-    n = n2 // 2
-    e = errors.to(torch.int32)
-    syn = (sum(torch.roll(e[:, :n], k, dims=-1) for k in shifts) + e[:, n:]) % 2
-    prior = float(np.log((1 - error_rate) / error_rate))
-    pc = torch.full((b, n), prior, dtype=torch.float32, device=errors.device)
+    syn, pc = _syndrome_and_prior(errors, shifts, error_rate)
     e_hat, conv, _ = _circulant_bp_frames(pc, pc, syn, tuple(shifts), True, int(max_iter), method)
-    return torch.all(e_hat == e, dim=-1), conv
+    return torch.all(e_hat == errors.to(torch.int32), dim=-1), conv
 
 
 def circulant_fer_cuda(errors, shifts, error_rate, max_iter, method="product_sum"):
     """FER step core: [B, 2N] 0/1 error bits (integer or bool) in ->
     ([B] success, [B] converged) bool flags, decoding with the uniform prior
     ``log((1 - error_rate) / error_rate)``."""
-    device = errors.device
-    if errors.ndim != 2 or errors.shape[1] % 2:
-        raise ValueError(f"errors must be [B, 2N], got shape {tuple(errors.shape)}")
-    b, n2 = errors.shape
-    n = n2 // 2
-    _check(errors, "errors", (b, n2), _INT_DTYPES, device)
+    device, b, n = _check_fer(errors, error_rate)
     shifts = _check_args(shifts, n, max_iter, method)
-    if not 0.0 < error_rate < 1.0:
-        raise ValueError(f"error_rate {error_rate} outside (0, 1)")
     if device.type == "cpu":
         return circulant_fer_plain(errors, shifts, error_rate, max_iter, method)
 
@@ -160,7 +205,7 @@ def circulant_fer_cuda(errors, shifts, error_rate, max_iter, method="product_sum
         c2v = torch.empty((b, w, n), dtype=torch.float32, device=device)
         tot = torch.empty((b, n), dtype=torch.float32, device=device)
         syn = torch.empty((b, n), dtype=torch.uint8, device=device)
-        e_hat = torch.empty((b, n2), dtype=torch.uint8, device=device)
+        e_hat = torch.empty((b, 2 * n), dtype=torch.uint8, device=device)
         ok = torch.empty((b,), dtype=torch.uint8, device=device)
         conv = torch.empty((b,), dtype=torch.uint8, device=device)
         if b:
@@ -176,3 +221,148 @@ def circulant_fer_cuda(errors, shifts, error_rate, max_iter, method="product_sum
 
 
 circulant_fer_cuda.launches = 0
+
+
+def _sgn(x):
+    return torch.where(x >= 0, 1.0, -1.0)
+
+
+def _lean_state(b, w, n, device):
+    """The lean kernel's per-frame state, which needs no initialisation:
+    v2c and c2v [B, w, N] bf16, acc_phi [B, N] f32, acc_neg [B, N] u8 (the
+    sign parity of each check) and tot [B, N] f32."""
+    planes = [torch.empty((b, w, n), dtype=torch.bfloat16, device=device) for _ in range(2)]
+    return (*planes, torch.empty((b, n), dtype=torch.float32, device=device),
+            torch.empty((b, n), dtype=torch.uint8, device=device),
+            torch.empty((b, n), dtype=torch.float32, device=device))
+
+
+def circulant_bp_lean_plain(prior_c, prior_i, syndrome, shifts, max_iter):
+    """Plain PyTorch version of :func:`circulant_bp_lean_cuda`, on any device:
+    the lean decode of ``_make_lean_kernel`` (shifts as data, one plane per
+    group, no lane padding) on [B, N] tensors, with its rounding points.  The
+    v2c and c2v planes are stored in bf16 (round to nearest even), the check
+    accumulators are rebuilt from the stored bf16 planes, and the variable
+    totals add the f32 extrinsics in plane order.  Returns (e [B, 2N] int32,
+    conv [B] bool, iters [B] int32)."""
+    bf16 = torch.bfloat16
+    syn = syndrome.to(torch.int32)
+    sgn_pi = _sgn(prior_i)
+    phi_pi = _phi(torch.abs(prior_i))
+    sgn_pi_syn = sgn_pi * (1 - 2 * syn).to(torch.float32)
+
+    def accumulators(v2c):
+        """Check accumulators (phi sum, sign product) over the identity
+        plane, then the bf16 planes in order."""
+        acc_phi, acc_sgn = phi_pi, sgn_pi_syn
+        for plane in v2c:
+            p = plane.float()
+            acc_phi = acc_phi + _phi(torch.abs(p))
+            acc_sgn = acc_sgn * _sgn(p)
+        return acc_phi, acc_sgn
+
+    # plane t, check i: the message from variable (i - k_t) mod N, unclipped at first
+    v2c = [torch.roll(prior_c, k, dims=-1).to(bf16) for k in shifts]
+    acc_phi, acc_sgn = accumulators(v2c)
+    e_out = torch.cat([prior_c < 0, prior_i < 0], dim=-1).to(torch.int32)
+    conv = torch.zeros((syn.shape[0],), dtype=torch.bool, device=syn.device)
+    iters = torch.zeros((syn.shape[0],), dtype=torch.int32, device=syn.device)
+    it = 0
+    while it < int(max_iter) and not bool(torch.all(conv)):
+        # pass A: extrinsics (stored bf16) and the f32 variable totals
+        tot = prior_c
+        c2v = []
+        for plane, k in zip(v2c, shifts):
+            p = plane.float()
+            ext = acc_sgn * _sgn(p) * _phi(torch.clamp(acc_phi - _phi(torch.abs(p)), min=1e-9))
+            c2v.append(ext.to(bf16))
+            tot = tot + torch.roll(ext, -k, dims=-1)
+        tot_i = prior_i + acc_sgn * sgn_pi * _phi(torch.clamp(acc_phi - phi_pi, min=1e-9))
+        # pass B: planes rewritten from the bf16 extrinsics; the syndrome of
+        # the decisions shares the rolls of the totals
+        syn_hat = (tot_i < 0).to(torch.int32)
+        for t, k in enumerate(shifts):
+            rolled = torch.roll(tot, k, dims=-1)
+            v2c[t] = torch.clamp(rolled - c2v[t].float(), -_BIG, _BIG).to(bf16)
+            syn_hat = syn_hat + (rolled < 0).to(torch.int32)
+        acc_phi, acc_sgn = accumulators(v2c)
+        ok = torch.all(syn_hat % 2 == syn, dim=-1)
+        e = torch.cat([tot < 0, tot_i < 0], dim=-1).to(torch.int32)
+        # latch each frame's first converged estimate
+        e_out = torch.where(conv[:, None], e_out, e)
+        iters = torch.where(conv, iters, it + 1)
+        conv = conv | ok
+        it += 1
+    return e_out, conv, iters
+
+
+def circulant_bp_lean_cuda(prior_c, prior_i, syndrome, shifts, max_iter, method="product_sum"):
+    """Lean decode of [B, N] syndromes of ``[circulant | I]`` (K3): the
+    inputs and outputs of :func:`circulant_bp_cuda`, product-sum only, with
+    the message planes stored in bf16 as ``circulant_bp_pallas_lean`` does."""
+    device, b, n = _check_decode(prior_c, prior_i, syndrome)
+    shifts = _check_lean_args(shifts, n, max_iter, method)
+    if device.type == "cpu":
+        return circulant_bp_lean_plain(prior_c, prior_i, syndrome, shifts, max_iter)
+
+    stream = _cuda_stream(device)
+    w = len(shifts)
+    with torch.cuda.device(device):
+        syn = syndrome.to(torch.uint8).contiguous()
+        k = torch.tensor(shifts, dtype=torch.int32, device=device)
+        state = _lean_state(b, w, n, device)
+        e = torch.empty((b, 2 * n), dtype=torch.uint8, device=device)
+        conv = torch.empty((b,), dtype=torch.uint8, device=device)
+        iters = torch.empty((b,), dtype=torch.int32, device=device)
+        if b:
+            rc = _lean_lib().circulant_bp_lean_decode(
+                prior_c.data_ptr(), prior_i.data_ptr(), syn.data_ptr(), k.data_ptr(), w, n, b, int(max_iter),
+                *(x.data_ptr() for x in state), e.data_ptr(), conv.data_ptr(), iters.data_ptr(), stream,
+            )
+            if rc != 0:
+                raise RuntimeError(f"circulant_bp_lean_decode launch failed: CUDA error {rc}")
+            circulant_bp_lean_cuda.launches += 1
+    return e.to(torch.int32), conv.bool(), iters
+
+
+circulant_bp_lean_cuda.launches = 0
+
+
+def circulant_fer_lean_plain(errors, shifts, error_rate, max_iter):
+    """Plain PyTorch version of :func:`circulant_fer_lean_cuda`, on any device."""
+    syn, pc = _syndrome_and_prior(errors, shifts, error_rate)
+    e_hat, conv, _ = circulant_bp_lean_plain(pc, pc, syn, shifts, max_iter)
+    return torch.all(e_hat == errors.to(torch.int32), dim=-1), conv
+
+
+def circulant_fer_lean_cuda(errors, shifts, error_rate, max_iter, method="product_sum"):
+    """Lean FER step (K4): the inputs and outputs of
+    :func:`circulant_fer_cuda` over the lean decode, product-sum only."""
+    device, b, n = _check_fer(errors, error_rate)
+    shifts = _check_lean_args(shifts, n, max_iter, method)
+    if device.type == "cpu":
+        return circulant_fer_lean_plain(errors, shifts, error_rate, max_iter)
+
+    stream = _cuda_stream(device)
+    w = len(shifts)
+    prior = float(np.log((1 - error_rate) / error_rate))
+    with torch.cuda.device(device):
+        err = errors.to(torch.uint8).contiguous()
+        k = torch.tensor(shifts, dtype=torch.int32, device=device)
+        state = _lean_state(b, w, n, device)
+        syn = torch.empty((b, n), dtype=torch.uint8, device=device)
+        e_hat = torch.empty((b, 2 * n), dtype=torch.uint8, device=device)
+        ok = torch.empty((b,), dtype=torch.uint8, device=device)
+        conv = torch.empty((b,), dtype=torch.uint8, device=device)
+        if b:
+            rc = _lean_lib().circulant_fer_lean_step(
+                err.data_ptr(), prior, k.data_ptr(), w, n, b, int(max_iter), *(x.data_ptr() for x in state),
+                syn.data_ptr(), e_hat.data_ptr(), ok.data_ptr(), conv.data_ptr(), stream,
+            )
+            if rc != 0:
+                raise RuntimeError(f"circulant_fer_lean_step launch failed: CUDA error {rc}")
+            circulant_fer_lean_cuda.launches += 1
+    return ok.bool(), conv.bool()
+
+
+circulant_fer_lean_cuda.launches = 0
