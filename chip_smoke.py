@@ -17,7 +17,12 @@ K4, which stores its message planes in bf16 as the TPU's lean kernel does.
 
 Phases (each prints one line; any failure exits non-zero):
   1. build the CUDA kernels from csrc/ (one nvcc per source, in parallel)
-     and the HQC-128 code (seed 0);
+     and the HQC-128 code (seed 0); print ptxas's registers and spills for
+     each K1/K2 instance and, for the instances that HQC-128/192/256 run at
+     w = 20 and 30, the placement from the card's shared-memory limits and
+     the resident warps from the occupancy calculator: fails unless tot is
+     in shared memory, a thread has at most 64 registers and no spills, and
+     32 warps are resident per SM;
   2. K2 (circulant_bp_cuda) against its plain PyTorch version on the card:
      512 frames, product-sum and min-sum, decisions and flags equal;
   3. K1 (circulant_fer_cuda) against its plain version: 512 frames at error
@@ -58,7 +63,10 @@ Phases (each prints one line; any failure exits non-zero):
      iteration counts equal;
  11. K4 (circulant_fer_lean_cuda) against its plain version on the same
      frames (flags equal), and on 512 HQC-128 frames at rate 0.05, 50
-     iterations (success counts within 2% of the frames, as phase 3);
+     iterations (success counts within 2% of the frames, as phase 3); K1
+     against its plain version on the w = 30 instance that path 4 runs: 256
+     HQC-192 and 256 HQC-256 frames (the same as K3's) at rate 0.01 (flags
+     equal) and 256 of each at 0.02 (success counts within 2%);
  12. K2 on the HQC-128 circulant without the identity block
      (with_identity=False) against its plain version through
      CirculantBPDecoder: 512 frames, product-sum and min-sum, decisions
@@ -71,10 +79,15 @@ Phases (each prints one line; any failure exits non-zero):
      on 2048 device-sampled HQC-256 frames;
  14. K1 against K4 on the same 8192 device-sampled HQC-128 frames at rates
      0.03 and 0.05, 50 iterations: success counts side by side (f32 against
-     bf16 message planes; reported, not gated).
+     bf16 message planes; reported, not gated);
+ 15. K1's iteration sweep on the three FER cells' traffic (HQC-128 at batch
+     4096, HQC-192 and HQC-256 at 2048, rate 0.01): ms at max_iter 0-3
+     (best of 3), so set-up, first and each later iteration.
 
-Then one JSON line of per-kernel results, and as the last line
-{"ok": true, "device": {...}}.  Run from the repository root:
+Then one JSON line of per-kernel results (time, plain version's time, the
+bound from ops/kernels/bounds.py with the work this run's inputs needed, and
+library_ms null: no single PyTorch call computes any of them), and as the
+last line {"ok": true, "device": {...}}.  Run from the repository root:
 
     python3 chip_smoke.py
 """
@@ -98,6 +111,7 @@ KY_SW, KY_ITER = 6, 10  # Kyber-768 decoder: sum weight, iterations
 N192, N256, W_BIG = 35851, 57637, 30  # HQC-192 and HQC-256 attack codes (bench.py:305-308)
 LEAN_FRAMES, PS_BATCH, PS_BATCHES = 256, 2048, 2
 BF16_FRAMES, BF16_ITER = 8192, 50
+K1_HARD_RATE = 0.02  # a noisier HQC-192/256 rate: more iterations a frame
 
 
 def _card():
@@ -125,6 +139,16 @@ def _ms(fn, repeats=3):
 def _ptxas(lib_path):
     return [ln.strip() for ln in lib_path.with_suffix(".log").read_text().splitlines()
             if "registers" in ln or "spill" in ln]
+
+
+def _nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _entry(name, src, replaces, launches, err, ms, plain_ms, bound):
+    return {"name": name, "route": "cuda", "source": src, "replaces": replaces, "launches": launches,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0], "bound_by": bound[1],
+            "library_ms": None}
 
 
 def _bitwise_equal(a, b):
@@ -158,11 +182,14 @@ def main():
     from sca_ldpc_tpu_torch.codes import CirculantLayout, random_circulant_first_row
     from sca_ldpc_tpu_torch.ops import CirculantBPDecoder
     from sca_ldpc_tpu_torch.ops.kernels import _build
+    from sca_ldpc_tpu_torch.ops.kernels.bounds import circulant_bound_ms
     from sca_ldpc_tpu_torch.ops.kernels.circulant_cuda import (
         circulant_bp_cuda,
         circulant_bp_plain,
         circulant_fer_cuda,
         circulant_fer_plain,
+        circulant_occupancy,
+        circulant_ptxas,
     )
     from sca_ldpc_tpu_torch.parallel import fer_simulation
     from sca_ldpc_tpu_torch.utils import make_random_state, rng_to_torch_generator
@@ -181,14 +208,27 @@ def main():
     for name in SOURCES:
         _build.load(name)
     build_s = time.perf_counter() - t0
-    lib_path = lib_paths["circulant_bp"]
-    ptxas = _ptxas(lib_path)
+    ptxas = circulant_ptxas()
     first_row = random_circulant_first_row(N, W, make_random_state(0))
     lay = CirculantLayout.from_first_row(first_row, with_identity=True)
     if lay.n != N or lay.weight != W:
         raise SystemExit(f"HQC-128 code has n={lay.n} w={lay.weight}")
     print(f"phase 1 build+code: built {', '.join(p.name for p in lib_paths.values())} in {build_s:.1f} s; HQC-128 code "
-          f"N={lay.n} w={lay.weight} n_vars={lay.n_vars}; ptxas: {' | '.join(ptxas)}")
+          f"N={lay.n} w={lay.weight} n_vars={lay.n_vars}; ptxas (K1/K2 instances, w <= MAXW): "
+          f"{' | '.join(f'w<={mw} {m} {pl} {r} regs/{sp} B spill' for (mw, m, pl), (r, sp) in ptxas.items())}")
+    occupancy = []
+    for n_hqc in (N, N192, N256):
+        for w_hqc in (W, W_BIG):
+            for method in ("product_sum", "min_sum"):
+                occ = circulant_occupancy(n_hqc, w_hqc, method, dev)
+                # w = 20 and 30 have instances of exactly that MAXW
+                regs, spill = ptxas[(w_hqc, method, occ["placement"])]
+                occupancy.append(f"N={n_hqc} w={w_hqc} {method}: tot in {occ['placement']} memory, "
+                                 f"{occ['resident_blocks']} x {occ['threads']} threads = {occ['resident_warps']} "
+                                 f"warps/SM, {regs} regs, {spill} B spill")
+                if occ["placement"] != "shared" or occ["resident_warps"] < 32 or regs > 64 or spill:
+                    raise SystemExit(f"K1/K2 launch configuration below the design: {occupancy[-1]}")
+    print(f"phase 1 K1/K2 occupancy: {' | '.join(occupancy)}")
 
     rng = np.random.RandomState(1234)
     results = {}
@@ -215,6 +255,9 @@ def main():
         if method == "product_sum" and recovered != CMP_FRAMES:
             raise SystemExit("K2 product_sum: not every frame recovered at error rate 0.01")
         if method == "product_sum":
+            # the frames' own iteration counts (K1 decodes the same frames in phase 3)
+            results["iters"] = int(circulant_bp_cuda(prior, prior, syn, lay.shifts, MAX_ITER, method)[2].sum())
+            results["bp_bytes"] = _nbytes(prior, prior, syn, e_k, conv_k) + 4 * CMP_FRAMES
             results["bp_ms"] = _ms(lambda: circulant_bp_cuda(prior, prior, syn, lay.shifts, MAX_ITER, method))
             results["bp_plain_ms"] = _ms(lambda: circulant_bp_plain(prior, prior, syn, lay.shifts, MAX_ITER, method))
     if circulant_bp_cuda.launches <= 0:
@@ -294,17 +337,20 @@ def main():
     qary = _qary_phases(dev, tag, lib_paths["qary_min_sum"])
     kyber = _kyber_phases(dev, tag)
     lean = _lean_phases(dev, tag, lib_paths["circulant_lean"], lay)
+    _k1_sweep(dev, tag, lay)
 
     src = "sca_ldpc_tpu_torch/csrc/circulant_bp.cu"
+    # K1's first iteration needs no phi a message under its one constant prior
+    k1_bound = circulant_bound_ms(results["iters"] - CMP_FRAMES, W, N, _nbytes(err_t) + 2 * CMP_FRAMES)
+    k2_bound = circulant_bound_ms(results["iters"], W, N, results["bp_bytes"])
+    print(f"bounds [{card}]: K1 {k1_bound[0]:.3f} ms ({k1_bound[1]}), kernel at "
+          f"{100 * k1_bound[0] / results['fer_ms']:.1f}%; K2 {k2_bound[0]:.3f} ms ({k2_bound[1]}), kernel at "
+          f"{100 * k2_bound[0] / results['bp_ms']:.1f}%; {results['iters'] / CMP_FRAMES:.3f} iterations a frame")
     print(json.dumps({"kernels": [
-        {"name": "circulant_fer_cuda", "route": "cuda", "source": src,
-         "replaces": "sca_ldpc_tpu/ops/kernels/circulant_pallas.py:723",
-         "launches": launches["circulant_fer_cuda"], "max_abs_err": k1_err,
-         "ms": results["fer_ms"], "plain_ms": results["fer_plain_ms"]},
-        {"name": "circulant_bp_cuda", "route": "cuda", "source": src,
-         "replaces": "sca_ldpc_tpu/ops/kernels/circulant_pallas.py:190",
-         "launches": launches["circulant_bp_cuda"], "max_abs_err": k2_err,
-         "ms": results["bp_ms"], "plain_ms": results["bp_plain_ms"]},
+        _entry("circulant_fer_cuda", src, "sca_ldpc_tpu/ops/kernels/circulant_pallas.py:723",
+               launches["circulant_fer_cuda"], k1_err, results["fer_ms"], results["fer_plain_ms"], k1_bound),
+        _entry("circulant_bp_cuda", src, "sca_ldpc_tpu/ops/kernels/circulant_pallas.py:190",
+               launches["circulant_bp_cuda"], k2_err, results["bp_ms"], results["bp_plain_ms"], k2_bound),
         *qary,
         *kyber,
         *lean,
@@ -327,6 +373,7 @@ def _qary_phases(dev, tag, lib_path):
     from sca_ldpc_tpu_torch.channels import probs_to_llr
     from sca_ldpc_tpu_torch.ops import QaryDecoder, decoder_name_for
     from sca_ldpc_tpu_torch.ops import minplus
+    from sca_ldpc_tpu_torch.ops.kernels.bounds import chain_bound_ms
     from sca_ldpc_tpu_torch.ops.kernels.qary_cuda import (
         chain_exclusive_cuda,
         chain_exclusive_plain,
@@ -359,7 +406,7 @@ def _qary_phases(dev, tag, lib_path):
         err = float((out_k - out_p).abs().max())
         ms = _ms(lambda: chain_exclusive_cuda(*args))
         plain_ms = _ms(lambda: chain_exclusive_plain(*args))
-        k5[label] = (err, ms, plain_ms)
+        k5[label] = (err, ms, plain_ms, _nbytes(args[0], out_k))
         print(f"phase 5 K5 {label} {tuple(args[0].shape)}"
               f"{' + ' + str(tuple(extra.shape)) if label == 'extra' else ''}: kernel==plain bitwise: {same}; "
               f"max_abs_err {err}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms {tag}")
@@ -380,6 +427,9 @@ def _qary_phases(dev, tag, lib_path):
     k6_err = int((hard_k - hard_p).abs().max())
     k6_ms = _ms(lambda: qary_min_sum_fused_cuda(*k6_args))
     k6_plain_ms = _ms(lambda: qary_min_sum_fused_plain(*k6_args))
+    dc = dec.layout.dc
+    k6_bound = chain_bound_ms(CMP_FRAMES * H.shape[0] * QITER, dc, QB, (dc - 1) * QB, QB, 0,
+                              _nbytes(llr, *dec._args, hard_k))
     print(f"phase 6 K6 medium decoder, {CMP_FRAMES} Dirichlet frames, {QITER} iterations: hard decisions "
           f"differ on {differ} frames; kernel {k6_ms:.3f} ms, plain {k6_plain_ms:.3f} ms {tag}")
     if differ:
@@ -429,16 +479,13 @@ def _qary_phases(dev, tag, lib_path):
         raise SystemExit(f"a kernel of the q-ary path was not launched: {launches}")
 
     src = "sca_ldpc_tpu_torch/csrc/qary_min_sum.cu"
+    k5_bound = chain_bound_ms(CMP_FRAMES * 150, dc, QB, (dc - 1) * QB, QB, 0, k5["medium"][3])
     return [
-        {"name": "chain_exclusive_cuda", "route": "cuda", "source": src,
-         "replaces": "sca_ldpc_tpu/ops/kernels/qary_pallas.py:104",
-         "launches": launches["chain_exclusive_cuda"],
-         "max_abs_err": max(k5["medium"][0], k5["extra"][0]),
-         "ms": k5["medium"][1], "plain_ms": k5["medium"][2]},
-        {"name": "qary_min_sum_fused_cuda", "route": "cuda", "source": src,
-         "replaces": "sca_ldpc_tpu/ops/kernels/qary_pallas.py:264",
-         "launches": launches["qary_min_sum_fused_cuda"], "max_abs_err": k6_err,
-         "ms": k6_ms, "plain_ms": k6_plain_ms},
+        _entry("chain_exclusive_cuda", src, "sca_ldpc_tpu/ops/kernels/qary_pallas.py:104",
+               launches["chain_exclusive_cuda"], max(k5["medium"][0], k5["extra"][0]), k5["medium"][1],
+               k5["medium"][2], k5_bound),
+        _entry("qary_min_sum_fused_cuda", src, "sca_ldpc_tpu/ops/kernels/qary_pallas.py:264",
+               launches["qary_min_sum_fused_cuda"], k6_err, k6_ms, k6_plain_ms, k6_bound),
     ]
 
 
@@ -452,6 +499,7 @@ def _kyber_phases(dev, tag):
     )
     from sca_ldpc_tpu_torch.ops import QarySpecialDecoder, get_decoder_by_name, minplus
     from sca_ldpc_tpu_torch.ops.qary import _signed
+    from sca_ldpc_tpu_torch.ops.kernels.bounds import chain_bound_ms
     from sca_ldpc_tpu_torch.ops.kernels.qary_cuda import (
         chain_exclusive_cuda,
         qary_special_min_sum_fused_cuda,
@@ -484,7 +532,9 @@ def _kyber_phases(dev, tag):
         err = max(int((hb_k - hb_p).abs().max()), int((hs_k - hs_p).abs().max()))
         ms = _ms(lambda: qary_special_min_sum_fused_cuda(*args))
         plain_ms = _ms(lambda: qary_special_min_sum_fused_plain(*args))
-        k7[eta] = (err, ms, plain_ms)
+        bound = chain_bound_ms(CMP_FRAMES * r * KY_ITER, KY_SW, eta, (2 * KY_SW - 1) * eta, eta, bsum,
+                               _nbytes(*(x for x in args if isinstance(x, torch.Tensor)), hb_k, hs_k))
+        k7[eta] = (err, ms, plain_ms, bound)
         smem = special_fused_smem_bytes(n_b, r, KY_SW, eta, bsum)
         print(f"phase 8 K7 DecoderN1280R512SW6 eta {eta} (QB {2 * eta + 1}, QS {2 * bsum + 1}, {smem} B shared "
               f"memory a frame), {CMP_FRAMES} Dirichlet frames, {KY_ITER} iterations: decisions differ on {differ} "
@@ -520,7 +570,7 @@ def _kyber_phases(dev, tag):
     t0 = time.perf_counter()
     attack = simulate_kyber_attack(make_random_state(7), device=dev, **kw)
     attack_s = time.perf_counter() - t0
-    attack_cpu = simulate_kyber_attack(make_random_state(7), **kw)
+    attack_cpu = simulate_kyber_attack(make_random_state(7), device="cpu", **kw)
     frac = min(res["correct_coefficients"] / res["total_coefficients"] for res in attack)
     print(f"phase 9 simulate_kyber_attack (seed 7, 2 runs) on the card in {attack_s:.2f} s: {attack}; "
           f"equal to the CPU run: {attack == attack_cpu}")
@@ -542,11 +592,9 @@ def _kyber_phases(dev, tag):
         raise SystemExit(f"a kernel of the Kyber path was not launched: {launches}")
 
     return [
-        {"name": "qary_special_min_sum_fused_cuda", "route": "cuda",
-         "source": "sca_ldpc_tpu_torch/csrc/qary_min_sum.cu",
-         "replaces": "sca_ldpc_tpu/ops/kernels/qary_pallas.py:414",
-         "launches": launches["qary_special_min_sum_fused_cuda"], "max_abs_err": max(k7[2][0], k7[3][0]),
-         "ms": k7[2][1], "plain_ms": k7[2][2]},
+        _entry("qary_special_min_sum_fused_cuda", "sca_ldpc_tpu_torch/csrc/qary_min_sum.cu",
+               "sca_ldpc_tpu/ops/kernels/qary_pallas.py:414", launches["qary_special_min_sum_fused_cuda"],
+               max(k7[2][0], k7[3][0]), k7[2][1], k7[2][2], k7[2][3]),
     ]
 
 
@@ -571,8 +619,10 @@ def _lean_phases(dev, tag, lib_path, lay128):
         circulant_fer_cuda,
         circulant_fer_lean_cuda,
         circulant_fer_lean_plain,
+        circulant_fer_plain,
         circulant_bp_plain,
     )
+    from sca_ldpc_tpu_torch.ops.kernels.bounds import circulant_bound_ms
     from sca_ldpc_tpu_torch.parallel import fer_simulation
     from sca_ldpc_tpu_torch.utils import make_random_state, rng_to_torch_generator
 
@@ -594,6 +644,8 @@ def _lean_phases(dev, tag, lib_path, lay128):
     recovered = int((e_k == err).all(dim=-1).sum())
     k3_ms = _ms(lambda: circulant_bp_lean_cuda(*k3_args))
     k3_plain_ms = _ms(lambda: circulant_bp_lean_plain(*k3_args))
+    iters = int(it_k.sum())
+    k3_bound = circulant_bound_ms(iters, W_BIG, n, _nbytes(prior, prior, syn, e_k, conv_k, it_k))
     print(f"phase 10 K3 HQC-256 N={n} w={W_BIG}, {LEAN_FRAMES} frames at {ERR}: decisions, conv and iters equal "
           f"to plain: {same}; recovered {recovered}/{LEAN_FRAMES}; iterations mean {float(it_k.float().mean()):.3f} "
           f"max {int(it_k.max())}; kernel {k3_ms:.3f} ms, plain {k3_plain_ms:.3f} ms {tag}")
@@ -610,6 +662,8 @@ def _lean_phases(dev, tag, lib_path, lay128):
     same = torch.equal(ok_k, ok_p) and torch.equal(conv_k, conv_p)
     k4_ms = _ms(lambda: circulant_fer_lean_cuda(err, lay256.shifts, ERR, MAX_ITER))
     k4_plain_ms = _ms(lambda: circulant_fer_lean_plain(err, lay256.shifts, ERR, MAX_ITER))
+    # the same frames as K3; the first iteration needs no phi a message under one constant prior
+    k4_bound = circulant_bound_ms(iters - LEAN_FRAMES, W_BIG, n, _nbytes(err) + 2 * LEAN_FRAMES)
     print(f"phase 11 K4 HQC-256, the same {LEAN_FRAMES} frames: flags equal to plain: {same}; successes "
           f"{int(ok_k.sum())}; kernel {k4_ms:.3f} ms, plain {k4_plain_ms:.3f} ms {tag}")
     if not same:
@@ -622,6 +676,24 @@ def _lean_phases(dev, tag, lib_path, lay128):
           f"{CMP_FRAMES}; flags differ on {int((ok_k != ok_p).sum())} frames")
     if abs(nk - npl) > 0.02 * CMP_FRAMES:
         raise SystemExit("K4: success counts differ by more than 2% at rate 0.05")
+    # K1 on the instance that path 4 runs (w = 30, tot in shared memory, 1 x 1024 threads)
+    lay192 = _hqc_code(N192)
+    for name, lay_b in (("HQC-192", lay192), ("HQC-256", lay256)):
+        for rate in (ERR, K1_HARD_RATE):
+            e_b = err if lay_b is lay256 and rate == ERR else torch.from_numpy(
+                (rng.random_sample((LEAN_FRAMES, lay_b.n_vars)) < rate).astype(np.uint8)).to(dev)
+            ok_k, conv_k = circulant_fer_cuda(e_b, lay_b.shifts, rate, MAX_ITER)
+            ok_p, conv_p = circulant_fer_plain(e_b, lay_b.shifts, rate, MAX_ITER)
+            torch.cuda.synchronize()
+            nk, npl = int(ok_k.sum()), int(ok_p.sum())
+            diff = int(((ok_k != ok_p) | (conv_k != conv_p)).sum())
+            print(f"phase 11 K1 {name} N={lay_b.n} w={lay_b.weight} rate {rate}, {LEAN_FRAMES} frames: successes "
+                  f"kernel {nk} plain {npl}; converged {int(conv_k.sum())} / {int(conv_p.sum())}; flags differ on "
+                  f"{diff} frames")
+            if rate == ERR and diff:
+                raise SystemExit(f"K1 {name}: flags differ from the plain version at rate {ERR}")
+            if abs(nk - npl) > 0.02 * LEAN_FRAMES:
+                raise SystemExit(f"K1 {name}: success counts differ by more than 2% at rate {rate}")
 
     # ---- phase 12: K2 without the identity block
     lay_c = CirculantLayout(n=lay128.n, shifts=lay128.shifts, with_identity=False)
@@ -651,7 +723,7 @@ def _lean_phases(dev, tag, lib_path, lay128):
     circulant_fer_lean_cuda.launches = 0
     circulant_bp_lean_cuda.launches = 0
     frames = PS_BATCH * PS_BATCHES
-    for name, lay_b, backend in (("HQC-192", _hqc_code(N192), "fused"), ("HQC-256", lay256, "fused"),
+    for name, lay_b, backend in (("HQC-192", lay192, "fused"), ("HQC-256", lay256, "fused"),
                                  ("HQC-256", lay256, "lean")):
         torch.cuda.reset_peak_memory_stats(dev)
         gen = rng_to_torch_generator(make_random_state(0), dev)
@@ -694,15 +766,26 @@ def _lean_phases(dev, tag, lib_path, lay128):
 
     src = "sca_ldpc_tpu_torch/csrc/circulant_lean.cu"
     return [
-        {"name": "circulant_bp_lean_cuda", "route": "cuda", "source": src,
-         "replaces": "sca_ldpc_tpu/ops/kernels/circulant_pallas.py:503",
-         "launches": launches["circulant_bp_lean_cuda"], "max_abs_err": k3_err, "ms": k3_ms,
-         "plain_ms": k3_plain_ms},
-        {"name": "circulant_fer_lean_cuda", "route": "cuda", "source": src,
-         "replaces": "sca_ldpc_tpu/ops/kernels/circulant_pallas.py:620",
-         "launches": launches["circulant_fer_lean_cuda"], "max_abs_err": k4_err, "ms": k4_ms,
-         "plain_ms": k4_plain_ms},
+        _entry("circulant_bp_lean_cuda", src, "sca_ldpc_tpu/ops/kernels/circulant_pallas.py:503",
+               launches["circulant_bp_lean_cuda"], k3_err, k3_ms, k3_plain_ms, k3_bound),
+        _entry("circulant_fer_lean_cuda", src, "sca_ldpc_tpu/ops/kernels/circulant_pallas.py:620",
+               launches["circulant_fer_lean_cuda"], k4_err, k4_ms, k4_plain_ms, k4_bound),
     ]
+
+
+def _k1_sweep(dev, tag, lay128):
+    """Phase 15: K1's time at max_iter 0-3 on the three FER cells' traffic."""
+    from sca_ldpc_tpu_torch.ops.kernels import circulant_fer_cuda
+    from sca_ldpc_tpu_torch.utils import make_random_state, rng_to_torch_generator
+
+    for name, lay_b, batch in (("HQC-128", lay128, BATCH), ("HQC-192", _hqc_code(N192), PS_BATCH),
+                               ("HQC-256", _hqc_code(N256), PS_BATCH)):
+        gen = rng_to_torch_generator(make_random_state(3), dev)
+        e_b = (torch.rand((batch, lay_b.n_vars), generator=gen, device=dev) < ERR).to(torch.uint8)
+        t = [_ms(lambda m=m: circulant_fer_cuda(e_b, lay_b.shifts, ERR, m)) for m in range(4)]
+        print(f"phase 15 K1 {name} batch {batch} sweep: ms at max_iter 0/1/2/3 {' / '.join(f'{x:.3f}' for x in t)}; "
+              f"set-up {t[0]:.3f}, first iteration {t[1] - t[0]:.3f}, each later one {(t[3] - t[1]) / 2:.3f} {tag}")
+        del e_b
 
 
 if __name__ == "__main__":

@@ -53,7 +53,7 @@ def get_channel_probabilities(s_distr, ssum_distr, sum_weight, check_blocks):
     return channel, channel_sum
 
 
-def get_decoder(sum_weight, H, check_blocks, iterations, backend=None, device="cpu"):
+def get_decoder(sum_weight, H, check_blocks, iterations, backend=None, device="cuda"):
     """Decoder for the Kyber attack geometry — the component the reference
     leaves unimplemented (kyber.py:379-435).  Any (sum_weight, check_blocks)
     combination works; shapes are validated against H.  ``backend`` None
@@ -111,7 +111,7 @@ def simulate_kyber_attack(
     fn=None,
     fp_sum=None,
     fn_sum=None,
-    device="cpu",
+    device="cuda",
 ):
     """Full simulated Kyber-768 attack; returns per-run recovery stats.
 
@@ -266,7 +266,7 @@ def simulate_kyber_attack_adaptive(
     iterations=10,
     runs=1,
     eta=3,
-    device="cpu",
+    device="cuda",
 ):
     """Full simulated attack with ADAPTIVE single-coefficient measurements.
 

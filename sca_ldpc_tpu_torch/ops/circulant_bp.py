@@ -140,7 +140,7 @@ class CirculantBPDecoder:
     CUDA kernel; on the CPU the plain PyTorch version runs.
     """
 
-    def __init__(self, layout: CirculantLayout, max_iter=50, method="product_sum", device="cpu"):
+    def __init__(self, layout: CirculantLayout, max_iter=50, method="product_sum", device="cuda"):
         self.layout = layout
         self.max_iter = int(max_iter)
         self.method = method

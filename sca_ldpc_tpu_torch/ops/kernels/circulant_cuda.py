@@ -17,6 +17,10 @@ The first two launch ``csrc/circulant_bp.cu``, the lean pair
 ``_build.py``), for CUDA tensors, and run the plain version beside them for
 CPU tensors.  There is no fallback: a CUDA tensor that the kernel cannot take
 raises.  Each wrapper counts its kernel launches in ``.launches``.
+:func:`circulant_launch` is the first pair's launch configuration for a
+device's shared-memory limits (:func:`smem_limits`): where the variable
+totals live (shared or device memory), threads a block and the padded plane
+stride.
 
 Unlike the TPU kernels, the batch need not be a multiple of a tile and the
 shifts are runtime data.  K1/K2 keep f32 messages (their TPU kernels store
@@ -25,6 +29,8 @@ bf16 v2c); the lean kernels keep the TPU kernel's bf16 planes.
 
 import ctypes
 import functools
+import re
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -35,6 +41,53 @@ _METHODS = {"product_sum": 0, "min_sum": 1}
 _MAX_W = 64
 _INT_DTYPES = (torch.bool, torch.uint8, torch.int8, torch.int16, torch.int32, torch.int64)
 
+# K1/K2 are built with __launch_bounds__(1024, 1): at most 64 registers a
+# thread, so 1024 threads (32 warps) a SM, as one block or two.
+THREADS_SM = 1024
+
+
+def _round_up(x, m):
+    return -(-x // m) * m
+
+
+class CirculantLaunch(NamedTuple):
+    """Launch configuration of K1/K2 for one (N, w)."""
+
+    placement: str  # "shared": tot in the block's shared memory; "device": tot [B, N] in device memory
+    threads: int  # threads a block
+    blocks_per_sm: int  # blocks resident on one SM by design
+    smem_bytes: int  # dynamic shared memory a block: the shifts, then tot in the shared placement
+    ld: int  # c2v plane stride in floats: N rounded up to a multiple of 32
+
+
+def smem_limits(device):
+    """(dynamic shared memory one block may opt in to, one SM's shared
+    memory) of a CUDA device, in bytes."""
+    props = torch.cuda.get_device_properties(device)
+    return props.shared_memory_per_block_optin, props.shared_memory_per_multiprocessor
+
+
+def circulant_launch(n, w, smem_block, smem_sm):
+    """K1/K2's launch configuration for circulant size ``n`` and weight ``w``
+    on a device with the shared-memory limits ``smem_block`` and ``smem_sm``
+    (:func:`smem_limits`).
+
+    The shifts take ``w`` rounded up to 32 ints at the head of shared
+    memory; the totals (4n bytes) follow them when the block can hold both,
+    and live in device memory otherwise.  Two blocks of 512 threads share an
+    SM when their shared memory, with what CUDA reserves for each block (the
+    SM's shared memory less what one block may opt in to), fits twice, else
+    one block of 1024: 32 warps either way."""
+    n, w = int(n), int(w)
+    if n < 1 or not 1 <= w <= _MAX_W:
+        raise ValueError(f"need n >= 1 and w in [1, {_MAX_W}], got n={n}, w={w}")
+    shifts_bytes = 4 * _round_up(w, 32)
+    placement, smem = "shared", shifts_bytes + 4 * n
+    if smem > smem_block:
+        placement, smem = "device", shifts_bytes
+    blocks = 2 if 2 * (smem + smem_sm - smem_block) <= smem_sm else 1
+    return CirculantLaunch(placement, THREADS_SM // blocks, blocks, smem, _round_up(n, 32))
+
 
 @functools.cache
 def _lib():
@@ -42,11 +95,59 @@ def _lib():
 
     lib = load("circulant_bp")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.circulant_bp_decode.argtypes = [p, p, p, p, i, i, i, i, i, i, p, p, p, p, p, p]
+    lib.circulant_bp_decode.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, i, p, p, p, p, p, p]
     lib.circulant_bp_decode.restype = i
-    lib.circulant_fer_step.argtypes = [p, f, p, i, i, i, i, i, p, p, p, p, p, p, p]
+    lib.circulant_fer_step.argtypes = [p, f, p, i, i, i, i, i, i, i, i, p, p, p, p, p, p, p]
     lib.circulant_fer_step.restype = i
+    lib.circulant_bp_occupancy.argtypes = [i, i, i, i, i]
+    lib.circulant_bp_occupancy.restype = i
     return lib
+
+
+def circulant_occupancy(n, w, method="product_sum", device="cuda"):
+    """The launch configuration of (n, w) on ``device`` (a dict of
+    :func:`circulant_launch`'s fields) plus ``resident_blocks`` and
+    ``resident_warps`` per SM of its K1/K2 instance, from the occupancy
+    calculator.  Needs a CUDA device."""
+    if method not in _METHODS:
+        raise ValueError(f"unknown bp method: {method}")
+    device = torch.device(device)
+    cfg = circulant_launch(n, w, *smem_limits(device))
+    with torch.cuda.device(device):
+        blocks = _lib().circulant_bp_occupancy(int(w), _METHODS[method], int(cfg.placement == "shared"),
+                                               cfg.threads, cfg.smem_bytes)
+    if blocks < 0:
+        raise RuntimeError(f"circulant_bp_occupancy failed: CUDA error {-blocks}")
+    return {**cfg._asdict(), "resident_blocks": blocks, "resident_warps": blocks * cfg.threads // 32}
+
+
+def circulant_ptxas():
+    """ptxas's ``-v`` report on every K1/K2 instance of the built library:
+    {(MAXW, method, placement): (registers, spill bytes stored and loaded)}
+    a thread.  Builds the library if needed (needs nvcc)."""
+    from ._build import build
+
+    out, inst, spill = {}, None, 0
+    for ln in build("circulant_bp").with_suffix(".log").read_text().splitlines():
+        m = re.search(r"circulant_bp_kernelILi(\d+)ELb(\d)ELb(\d)E", ln)
+        if m and "Compiling entry function" in ln:
+            inst = (int(m[1]), "min_sum" if m[2] == "1" else "product_sum", "shared" if m[3] == "1" else "device")
+        elif inst and "spill stores" in ln:
+            st, ld = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln).groups()
+            spill = int(st) + int(ld)
+        elif inst and "Used" in ln:
+            out[inst] = (int(re.search(r"Used (\d+) registers", ln)[1]), spill)
+            inst = None
+    return out
+
+
+def _scratch(b, w, n, device):
+    """K1/K2's launch configuration, c2v [B, w, ld] and, in the device
+    placement only, tot [B, N] (None in the shared one)."""
+    cfg = circulant_launch(n, w, *smem_limits(device))
+    c2v = torch.empty((b, w, cfg.ld), dtype=torch.float32, device=device)
+    tot = torch.empty((b, n), dtype=torch.float32, device=device) if cfg.placement == "device" else None
+    return cfg, c2v, tot
 
 
 @functools.cache
@@ -159,17 +260,16 @@ def circulant_bp_cuda(prior_c, prior_i, syndrome, shifts, max_iter, method="min_
     with torch.cuda.device(device):
         syn = syndrome.to(torch.uint8).contiguous()
         k = torch.tensor(shifts, dtype=torch.int32, device=device)
-        c2v = torch.empty((b, w, n), dtype=torch.float32, device=device)
-        tot = torch.empty((b, n), dtype=torch.float32, device=device)
+        cfg, c2v, tot = _scratch(b, w, n, device)
         e = torch.empty((b, 2 * n if with_identity else n), dtype=torch.uint8, device=device)
         conv = torch.empty((b,), dtype=torch.uint8, device=device)
         iters = torch.empty((b,), dtype=torch.int32, device=device)
         if b:
             rc = _lib().circulant_bp_decode(
                 prior_c.data_ptr(), prior_i.data_ptr(), syn.data_ptr(), k.data_ptr(),
-                w, n, b, int(max_iter), _METHODS[method], int(bool(with_identity)),
-                c2v.data_ptr(), tot.data_ptr(), e.data_ptr(), conv.data_ptr(), iters.data_ptr(),
-                stream,
+                w, n, cfg.ld, b, int(max_iter), _METHODS[method], int(bool(with_identity)),
+                cfg.threads, cfg.smem_bytes, c2v.data_ptr(), None if tot is None else tot.data_ptr(),
+                e.data_ptr(), conv.data_ptr(), iters.data_ptr(), stream,
             )
             if rc != 0:
                 raise RuntimeError(f"circulant_bp_decode launch failed: CUDA error {rc}")
@@ -202,17 +302,16 @@ def circulant_fer_cuda(errors, shifts, error_rate, max_iter, method="product_sum
     with torch.cuda.device(device):
         err = errors.to(torch.uint8).contiguous()
         k = torch.tensor(shifts, dtype=torch.int32, device=device)
-        c2v = torch.empty((b, w, n), dtype=torch.float32, device=device)
-        tot = torch.empty((b, n), dtype=torch.float32, device=device)
+        cfg, c2v, tot = _scratch(b, w, n, device)
         syn = torch.empty((b, n), dtype=torch.uint8, device=device)
-        e_hat = torch.empty((b, 2 * n), dtype=torch.uint8, device=device)
+        e_i = torch.empty((b, n), dtype=torch.uint8, device=device)
         ok = torch.empty((b,), dtype=torch.uint8, device=device)
         conv = torch.empty((b,), dtype=torch.uint8, device=device)
         if b:
             rc = _lib().circulant_fer_step(
-                err.data_ptr(), prior, k.data_ptr(), w, n, b, int(max_iter), _METHODS[method],
-                c2v.data_ptr(), tot.data_ptr(), syn.data_ptr(), e_hat.data_ptr(),
-                ok.data_ptr(), conv.data_ptr(), stream,
+                err.data_ptr(), prior, k.data_ptr(), w, n, cfg.ld, b, int(max_iter), _METHODS[method],
+                cfg.threads, cfg.smem_bytes, c2v.data_ptr(), None if tot is None else tot.data_ptr(),
+                syn.data_ptr(), e_i.data_ptr(), ok.data_ptr(), conv.data_ptr(), stream,
             )
             if rc != 0:
                 raise RuntimeError(f"circulant_fer_step launch failed: CUDA error {rc}")

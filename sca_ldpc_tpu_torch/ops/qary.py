@@ -170,7 +170,7 @@ class QaryDecoder:
     """
 
     def __init__(self, H, b_range: int, max_iter: int, dc=None, dv=None, backend=None,
-                 early_exit=False, device="cpu"):
+                 early_exit=False, device="cuda"):
         self.layout = CodeLayout.from_h(np.asarray(H), dc=dc, dv=dv)
         self.b = int(b_range)
         self.q = 2 * self.b + 1

@@ -220,7 +220,7 @@ class QarySpecialDecoder:
     """
 
     def __init__(self, H, b: int, bsum: int, max_iter: int, sw=None, backend=None,
-                 early_exit=False, device="cpu"):
+                 early_exit=False, device="cuda"):
         H = np.asarray(H)
         r, n = H.shape
         if bsum % b != 0:

@@ -29,7 +29,7 @@ def simulate_frame_error_rate_qary(
     host_sampling=False,
     backend=None,
     early_exit=False,
-    device="cpu",
+    device="cuda",
 ):
     """Q-ary FER on the all-zero codeword with good/bad symbol distributions.
 

@@ -195,7 +195,7 @@ SW_OF = {"irregular": 3, "block16": 6, "block16x2": 6, "kyber768": 6}
 def test_index_arrays_match_jax_args(name):
     H = _h(name)
     b = 2
-    ours = QarySpecialDecoder(H, b, b * SW_OF[name], 1)
+    ours = QarySpecialDecoder(H, b, b * SW_OF[name], 1, device="cpu")
     theirs = JaxQarySpecialDecoder(H, b, b * SW_OF[name], 1)
     assert (ours.n, ours.r, ours.n_b, ours.sw) == (theirs.n, theirs.r, theirs.n_b, theirs.sw)
     fields = ("bvar_idx", "bvar_sign", "bvar_mask", "var_flat", "var_sign", "var_mask", "sum_sign", "row_of_sum")
@@ -215,13 +215,13 @@ def test_decoder_rejects_what_jax_rejects():
     for kw in (dict(b=2, bsum=7), dict(b=2, bsum=8), dict(b=2, bsum=6, backend="xla"),
                dict(b=2, bsum=6, backend="fused", early_exit=True)):
         with pytest.raises(ValueError):
-            QarySpecialDecoder(H, max_iter=3, **kw)
+            QarySpecialDecoder(H, max_iter=3, device="cpu", **kw)
     two_sums = H.copy()
     two_sums[0, -1] = two_sums[0, -2] = 1
     for bad in (two_sums, H[:, :-1]):
         with pytest.raises(ValueError):
-            QarySpecialDecoder(bad, 2, 6, 3)
-    dec = QarySpecialDecoder(H, 2, 6, 3)
+            QarySpecialDecoder(bad, 2, 6, 3, device="cpu")
+    dec = QarySpecialDecoder(H, 2, 6, 3, device="cpu")
     assert dec.backend == "plain"
     with pytest.raises(ValueError):
         dec.min_sum(np.full((12, 4), 0.25, np.float32), np.full((6, 13), 1 / 13, np.float32))
@@ -308,7 +308,7 @@ CASES = ["irregular", "irregular:eta3", "block16", "block16x2", "kyber768", "non
 def test_decoder_matches_jax_xla_path(case, backend):
     name, b = _case(case)
     for iters in (1, 4) if name != "kyber768" else (3,):
-        ours = QarySpecialDecoder(_h(name), b, b * SW_OF[name], iters, backend=backend).min_sum(*_frames(case))
+        ours = QarySpecialDecoder(_h(name), b, b * SW_OF[name], iters, backend=backend, device="cpu").min_sum(*_frames(case))
         assert ours.dtype == torch.int32
         np.testing.assert_array_equal(ours.numpy(), _jax_hard(case, iters))
 
@@ -318,7 +318,7 @@ def test_decoder_matches_jax_xla_path(case, backend):
 def test_decoder_early_exit_matches_jax(case, backend):
     name, b = _case(case)
     iters = 6 if case == "nonzero" else 4
-    ours = QarySpecialDecoder(_h(name), b, b * SW_OF[name], iters, backend=backend, early_exit=True)
+    ours = QarySpecialDecoder(_h(name), b, b * SW_OF[name], iters, backend=backend, early_exit=True, device="cpu")
     got = ours.min_sum(*_frames(case)).numpy()
     np.testing.assert_array_equal(got, _jax_hard(case, iters, early_exit=True))
     if case == "nonzero":
@@ -334,7 +334,7 @@ def test_fused_matches_jax_fused_in_interpret_mode():
     jdec = JaxQarySpecialDecoder(H, 2, 12, max_iter=3, backend="fused")
     with pltpu.force_tpu_interpret_mode():
         theirs = np.asarray(jdec.min_sum(ch_b, ch_s))
-    ours = QarySpecialDecoder(H, 2, 12, 3, backend="fused").min_sum(ch_b, ch_s)
+    ours = QarySpecialDecoder(H, 2, 12, 3, backend="fused", device="cpu").min_sum(ch_b, ch_s)
     np.testing.assert_array_equal(ours.numpy(), theirs)
     # the kernel itself, on the JAX decoder's row-ordered inputs
     llr_b = jminplus.clip_inf(jllr.probs_to_llr(ch_b))
@@ -343,7 +343,7 @@ def test_fused_matches_jax_fused_in_interpret_mode():
     vsum = jnp.where(sign[None, :, None] < 0, llr_s[..., ::-1], llr_s)
     with pltpu.force_tpu_interpret_mode():
         hb, hs = qary_special_min_sum_fused(llr_b, llr_s, vsum, *jdec._fused_args(), 2, 12, 3)
-    dec = QarySpecialDecoder(H, 2, 12, 3, backend="fused")
+    dec = QarySpecialDecoder(H, 2, 12, 3, backend="fused", device="cpu")
     args = tuple(torch.from_numpy(np.array(x)) for x in (llr_b, llr_s, vsum))
     kb, ks = qary_special_min_sum_fused_cuda(*args, *dec._args[:4], dec._args[6], 2, 12, 3)
     np.testing.assert_array_equal(kb.numpy(), np.asarray(hb))
@@ -361,7 +361,7 @@ def test_decoder_matches_enumeration_reference(iters):
     n_b, r, sw, b = 12, 6, 3, 2
     bsum = sw * b
     H = _irregular(17) if iters == 1 else _irregular(18, deg0=sw)
-    decs = [QarySpecialDecoder(H, b, bsum, iters, sw=sw, backend=be) for be in ("plain", "chain", "fused")]
+    decs = [QarySpecialDecoder(H, b, bsum, iters, sw=sw, backend=be, device="cpu") for be in ("plain", "chain", "fused")]
     sum_col = np.array([np.flatnonzero(H[i, n_b:])[0] for i in range(r)])
     for _ in range(3):
         if iters == 1:
@@ -382,17 +382,17 @@ def test_decoder_matches_enumeration_reference(iters):
 def test_batched_and_zero_iterations():
     H = _h("block16")
     ch_b, ch_s = _frames("block16")
-    dec = QarySpecialDecoder(H, 2, 12, 3, backend="fused")
+    dec = QarySpecialDecoder(H, 2, 12, 3, backend="fused", device="cpu")
     batched = dec.min_sum(ch_b, ch_s)
     for f in range(ch_b.shape[0]):
         np.testing.assert_array_equal(dec.min_sum(ch_b[f], ch_s[f]).numpy(), batched[f].numpy())
     for backend in ("plain", "fused"):
-        zero = QarySpecialDecoder(H, 2, 12, 0, backend=backend).min_sum(ch_b, ch_s).numpy()
+        zero = QarySpecialDecoder(H, 2, 12, 0, backend=backend, device="cpu").min_sum(ch_b, ch_s).numpy()
         np.testing.assert_array_equal(zero, np.asarray(JaxQarySpecialDecoder(H, 2, 12, 0).min_sum(ch_b, ch_s)))
 
 
 def test_fused_wrapper_checks_inputs_on_cpu():
-    dec = QarySpecialDecoder(_h("irregular"), 2, 6, 3)
+    dec = QarySpecialDecoder(_h("irregular"), 2, 6, 3, device="cpu")
     args = (torch.zeros((2, 12, 5)), torch.zeros((2, 6, 13)), torch.zeros((2, 6, 13)), *dec._args[:4], dec._args[6])
     before = qary_special_min_sum_fused_cuda.launches
     hb, hs = qary_special_min_sum_fused_cuda(*args, 2, 6, 3)
@@ -414,16 +414,16 @@ def test_fused_wrapper_checks_inputs_on_cpu():
 
 def test_registry_resolves_the_kyber_decoder():
     H = kyber.gen_ldpc_matrix(6, 0, check_blocks=2)
-    dec = get_decoder_by_name("DecoderN1280R512SW6", H, iterations=3)
+    dec = get_decoder_by_name("DecoderN1280R512SW6", H, iterations=3, device="cpu")
     assert isinstance(dec, QarySpecialDecoder)
     assert (dec.n, dec.r, dec.sw, dec.b, dec.bsum, dec.max_iter, dec.backend) == (1280, 512, 6, 2, 12, 3, "plain")
-    assert get_decoder_by_name("DecoderN1280R512SW6", H, 3, eta=3, backend="chain").bsum == 18
+    assert get_decoder_by_name("DecoderN1280R512SW6", H, 3, eta=3, backend="chain", device="cpu").bsum == 18
     with pytest.raises(ValueError):
-        get_decoder_by_name("DecoderN1280R512SW6", H[:, :-1], iterations=3)
-    dk = pipeline.get_decoder(6, H, 2, iterations=3)
+        get_decoder_by_name("DecoderN1280R512SW6", H[:, :-1], iterations=3, device="cpu")
+    dk = pipeline.get_decoder(6, H, 2, iterations=3, device="cpu")
     assert (dk.sw, dk.b, dk.bsum, dk.backend) == (6, 2, 12, "plain")
     with pytest.raises(ValueError):
-        pipeline.get_decoder(6, H[:, :-1], 2, iterations=3)
+        pipeline.get_decoder(6, H[:, :-1], 2, iterations=3, device="cpu")
 
 
 # ---------------------------------------------------------------- attack pipeline
@@ -433,7 +433,7 @@ def test_kyber_attack_matches_jax():
     """test_kyber.py:169 (seed 7): the same result dicts, recovery > 95%."""
     kw = dict(accuracy=0.995, num_patterns=3, num_patterns_sum=3, sum_weight=6, check_blocks=2, iterations=10,
               runs=1)
-    ours = kyber.simulate_kyber_attack(make_random_state(7), **kw)
+    ours = kyber.simulate_kyber_attack(make_random_state(7), device="cpu", **kw)
     assert ours == jkyber.simulate_kyber_attack(make_random_state(7), **kw)
     assert ours[0]["correct_coefficients"] / ours[0]["total_coefficients"] > 0.95
 
@@ -442,7 +442,7 @@ def test_kyber_attack_fpfn_matches_jax():
     """test_kyber.py:134 (seed 9): asymmetric per-position oracle noise."""
     kw = dict(accuracy=0.995, num_patterns=3, num_patterns_sum=3, sum_weight=6, check_blocks=2, iterations=10,
               runs=1, fp=[0.002, 0.01, 0.005], fn=0.008)
-    ours = kyber.simulate_kyber_attack(make_random_state(9), **kw)
+    ours = kyber.simulate_kyber_attack(make_random_state(9), device="cpu", **kw)
     assert ours == jkyber.simulate_kyber_attack(make_random_state(9), **kw)
     assert ours[0]["correct_coefficients"] / ours[0]["total_coefficients"] > 0.95
 
@@ -450,6 +450,6 @@ def test_kyber_attack_fpfn_matches_jax():
 def test_kyber_adaptive_attack_matches_jax():
     """test_kyber_adaptive.py:67 (seed 0): eta = 3 tree-coded measurements,
     full recovery; the same result dict."""
-    ours = kyber.simulate_kyber_attack_adaptive(make_random_state(0), accuracy=0.995, runs=1)
+    ours = kyber.simulate_kyber_attack_adaptive(make_random_state(0), accuracy=0.995, runs=1, device="cpu")
     assert ours == jkyber.simulate_kyber_attack_adaptive(make_random_state(0), accuracy=0.995, runs=1)
     assert ours[0]["recovered"] and ours[0]["correct_coefficients"] == 768

@@ -218,7 +218,7 @@ def test_decoder_without_identity_matches_jax_decoder(method):
     err = (rng.rand(16, n) < 0.02).astype(np.int32)
     syn = (err @ lay.to_dense().T) % 2
     probs = np.full((16, n), 0.02, np.float32) * rng.uniform(0.5, 1.5, (16, n)).astype(np.float32)
-    e, conv, it = CirculantBPDecoder(lay, 20, method).decode_syndrome(syn, probs, return_aux=True)
+    e, conv, it = CirculantBPDecoder(lay, 20, method, device="cpu").decode_syndrome(syn, probs, return_aux=True)
     ej, cj, ij = JaxDecoder(jax_lay, 20, method).decode_syndrome(syn, probs, return_aux=True)
     np.testing.assert_array_equal(e.numpy(), np.asarray(ej))
     np.testing.assert_array_equal(conv.numpy(), np.asarray(cj))

@@ -219,7 +219,7 @@ def test_kernel_wrappers_check_inputs_on_cpu():
         chain_exclusive_cuda(v, 6, 2, torch.zeros((2, 4, 5)))
     with pytest.raises(ValueError):
         chain_exclusive_cuda(v, -1, 2)
-    dec = QaryDecoder(TOY, 7, 3, backend="fused")
+    dec = QaryDecoder(TOY, 7, 3, backend="fused", device="cpu")
     llr = torch.zeros((2, 6, 15))
     with pytest.raises(ValueError):
         qary_min_sum_fused_cuda(llr, *dec._args, 6, 3)
@@ -248,7 +248,7 @@ def _jax_hard(name, iters, early_exit=False, frames=3):
 def test_decoder_matches_jax_xla_path(name, backend):
     H = _h(name)
     for iters in (1, 4):
-        ours = QaryDecoder(H, B_OF[name], iters, backend=backend).min_sum(_probs(name))
+        ours = QaryDecoder(H, B_OF[name], iters, backend=backend, device="cpu").min_sum(_probs(name))
         assert ours.dtype == torch.int32
         np.testing.assert_array_equal(ours.numpy(), _jax_hard(name, iters))
 
@@ -257,7 +257,7 @@ def test_decoder_matches_jax_xla_path(name, backend):
 @pytest.mark.parametrize("backend", ["plain", "chain"])
 def test_decoder_early_exit_matches_jax(name, backend):
     H = _h(name)
-    ours = QaryDecoder(H, B_OF[name], 4, backend=backend, early_exit=True).min_sum(_probs(name))
+    ours = QaryDecoder(H, B_OF[name], 4, backend=backend, early_exit=True, device="cpu").min_sum(_probs(name))
     np.testing.assert_array_equal(ours.numpy(), _jax_hard(name, 4, early_exit=True))
 
 
@@ -269,7 +269,7 @@ def test_decoder_matches_jax_pallas_fused_in_interpret_mode():
     llr = jminplus.clip_inf(jllr.probs_to_llr(_probs("qary_qc", 5, seed=7)))
     with pltpu.force_tpu_interpret_mode():
         theirs = np.asarray(qary_min_sum_fused(llr, *dec._fused_args(), 2, 4))
-    ours = QaryDecoder(H, 2, 4, backend="fused").min_sum(_probs("qary_qc", 5, seed=7))
+    ours = QaryDecoder(H, 2, 4, backend="fused", device="cpu").min_sum(_probs("qary_qc", 5, seed=7))
     np.testing.assert_array_equal(ours.numpy(), theirs)
 
 
@@ -282,10 +282,10 @@ def test_medium_450_decode_at_batch_one():
     channel[1, 7] = 0.1
     channel[1, 14] = 0.9
     for backend in ("plain", "chain", "fused"):
-        out = QaryDecoder(H, 7, 10, backend=backend).min_sum(channel)
+        out = QaryDecoder(H, 7, 10, backend=backend, device="cpu").min_sum(channel)
         assert out.shape == (450,) and not out.any()
     probs = _probs("medium", frames=1, seed=4)[0]
-    ours = QaryDecoder(H, 7, 3, backend="fused").min_sum(probs)
+    ours = QaryDecoder(H, 7, 3, backend="fused", device="cpu").min_sum(probs)
     np.testing.assert_array_equal(ours.numpy(), np.asarray(JaxQaryDecoder(H, 7, 3).min_sum(probs)))
 
 
@@ -312,7 +312,7 @@ def test_decoder_matches_enumeration_reference(iters):
     bad = np.full(q, p, np.float32)
     good[[b, -1]] = [1.75 * p, 0.25 * p]
     bad[[-1, b]] = [1.75 * p, 0.25 * p]
-    decs = [QaryDecoder(H, b, iters, backend=be) for be in ("plain", "chain", "fused")]
+    decs = [QaryDecoder(H, b, iters, backend=be, device="cpu") for be in ("plain", "chain", "fused")]
     for _ in range(3):
         ch = np.tile(good, (n, 1)).astype(np.float32)
         ch[rng.choice(n, 1, replace=False)] = bad
@@ -323,30 +323,30 @@ def test_decoder_matches_enumeration_reference(iters):
 
 def test_decoder_rejects_bad_arguments():
     with pytest.raises(ValueError):
-        QaryDecoder(TOY, 7, 3, backend="xla")
+        QaryDecoder(TOY, 7, 3, backend="xla", device="cpu")
     with pytest.raises(ValueError):
-        QaryDecoder(TOY, 7, 3, backend="fused", early_exit=True)
-    assert QaryDecoder(TOY, 7, 3).backend == "plain"
+        QaryDecoder(TOY, 7, 3, backend="fused", early_exit=True, device="cpu")
+    assert QaryDecoder(TOY, 7, 3, device="cpu").backend == "plain"
     with pytest.raises(ValueError):
-        QaryDecoder(TOY, 7, 3).min_sum(np.full((6, 5), 0.2, np.float32))
+        QaryDecoder(TOY, 7, 3, device="cpu").min_sum(np.full((6, 5), 0.2, np.float32))
 
 
 def test_decoder_registry():
     H = _h("medium").astype(np.int8)
     name = decoder_name_for(H, 1)
     assert name == "DecoderN450R150V3C7B1"
-    dec = get_decoder_by_name(name, H, iterations=5, backend="fused")
+    dec = get_decoder_by_name(name, H, iterations=5, backend="fused", device="cpu")
     assert (dec.b, dec.max_iter, dec.layout.dc, dec.layout.dv, dec.backend) == (1, 5, 7, 3, "fused")
     ch = np.zeros((450, 3), np.float32)
     ch[:, 1] = 1.0
     assert not dec.min_sum(ch).any()
     hk = gen_ldpc_matrix(6, 0, check_blocks=2)
-    deck = get_decoder_by_name("DecoderN1280R512SW6", hk, iterations=3)  # the two-alphabet decoder
+    deck = get_decoder_by_name("DecoderN1280R512SW6", hk, iterations=3, device="cpu")  # the two-alphabet decoder
     assert (deck.n, deck.r, deck.sw, deck.b, deck.bsum, deck.backend) == (1280, 512, 6, 2, 12, "plain")
     with pytest.raises(ValueError):
-        get_decoder_by_name("DecoderBogus", H, 5)
+        get_decoder_by_name("DecoderBogus", H, 5, device="cpu")
     with pytest.raises(ValueError):
-        get_decoder_by_name("DecoderN450R150V3C7B1", H[:, :-1], 5)
+        get_decoder_by_name("DecoderN450R150V3C7B1", H[:, :-1], 5, device="cpu")
 
 
 # ---------------------------------------------------------------- FER
@@ -359,19 +359,19 @@ def test_qary_fer_doctest_case():
         rng = make_random_state(1)
         H = codes.make_regular_ldpc_parity_check_matrix_identity(300, 150, 3, 6, rng)
         assert simulate_frame_error_rate_qary(H, 1, 0.005, 1, rng, iterations=5, host_sampling=True,
-                                              backend=backend) == (1, 2, None)
+                                              backend=backend, device="cpu") == (1, 2, None)
 
 
 @pytest.mark.parametrize("b_range", [1, 2])
 def test_qary_fer_host_sampling_matches_jax(b_range):
     """64 runs of the doctest configuration (seed 1, rate 0.005, 5
     iterations) at B = 1 and 2: the same triple as the JAX function."""
-    def run(sim, make):
+    def run(sim, make, **kw):
         rng = make_random_state(1)
         H = make(300, 150, 3, 6, rng)
-        return sim(H, b_range, 0.005, 64, rng, iterations=5, host_sampling=True)
+        return sim(H, b_range, 0.005, 64, rng, iterations=5, host_sampling=True, **kw)
 
-    ours = run(simulate_frame_error_rate_qary, codes.make_regular_ldpc_parity_check_matrix_identity)
+    ours = run(simulate_frame_error_rate_qary, codes.make_regular_ldpc_parity_check_matrix_identity, device="cpu")
     theirs = run(jax_fer_qary, jcodes.make_regular_ldpc_parity_check_matrix_identity)
     assert ours == theirs
     assert 0 < ours[0] < 64
@@ -380,15 +380,15 @@ def test_qary_fer_host_sampling_matches_jax(b_range):
 def test_qary_fer_device_sampling_is_deterministic():
     H = codes.make_regular_ldpc_parity_check_matrix_identity(60, 30, 3, 6, 1)
     rng = make_random_state(5)
-    a = simulate_frame_error_rate_qary(H, 1, 0.05, 40, rng, iterations=3, batch_size=16)
+    a = simulate_frame_error_rate_qary(H, 1, 0.05, 40, rng, iterations=3, batch_size=16, device="cpu")
     # three batches, none with an error-free frame at this rate: three host draws
     expected = make_random_state(5)
     for _ in range(3):
         expected.randint(0, 2**31 - 1)
     assert rng.randint(0, 100) == expected.randint(0, 100)
-    assert simulate_frame_error_rate_qary(H, 1, 0.05, 40, 5, iterations=3, batch_size=16) == a
+    assert simulate_frame_error_rate_qary(H, 1, 0.05, 40, 5, iterations=3, batch_size=16, device="cpu") == a
     assert simulate_frame_error_rate_qary(H, 1, 0.05, 40, 5, iterations=3, batch_size=16,
-                                          backend="fused") == a
+                                          backend="fused", device="cpu") == a
     assert 0 <= a[0] <= 40
 
 
@@ -407,17 +407,17 @@ def test_qary_modules_run_without_jax():
         H = make_regular_ldpc_parity_check_matrix_identity(60, 30, 3, 6, 1)
         ch = np.zeros((90, 3), np.float32)
         ch[:, 1] = 1.0
-        assert not QaryDecoder(H, 1, 3, backend="fused").min_sum(ch).any()
-        assert simulate_frame_error_rate_qary(H, 1, 0.01, 4, 0)[0] <= 4
+        assert not QaryDecoder(H, 1, 3, backend="fused", device="cpu").min_sum(ch).any()
+        assert simulate_frame_error_rate_qary(H, 1, 0.01, 4, 0, device="cpu")[0] <= 4
         Hk = kyber.gen_ldpc_matrix(6, 0, 1)
-        dec = qary_special.QarySpecialDecoder(Hk, 2, 12, 2, backend="fused")
-        assert get_decoder_by_name("DecoderN1024R256SW6", Hk, 2).sw == 6
+        dec = qary_special.QarySpecialDecoder(Hk, 2, 12, 2, backend="fused", device="cpu")
+        assert get_decoder_by_name("DecoderN1024R256SW6", Hk, 2, device="cpu").sw == 6
         pb = np.full((768, 5), 0.02, np.float32)
         pb[:, 2] = 0.92
         ps = np.zeros((256, 25), np.float32)
         ps[:, 12] = 1.0
         assert not dec.min_sum(pb, ps).any()
-        assert kyber.simulate_kyber_attack(7, accuracy=0.995, runs=1)[0]["total_coefficients"] == 768
+        assert kyber.simulate_kyber_attack(7, accuracy=0.995, runs=1, device="cpu")[0]["total_coefficients"] == 768
         leaked = [m for m in sys.modules if m == "sca_ldpc_tpu" or m.startswith("sca_ldpc_tpu.")
                   or (m.startswith("jax") and sys.modules[m] is not None)]
         assert not leaked, leaked

@@ -2,6 +2,7 @@
 and the FER loop on the CPU — against the JAX package, and the port's
 independence from JAX at run time."""
 
+import inspect
 import os
 import subprocess
 import sys
@@ -49,7 +50,7 @@ def test_decode_syndrome_matches_jax_decoder(n, method):
     probs[:, :8] = 1e-31
     probs[:, 8:12] = 0.5
     probs[:, n:] *= rng.uniform(0.5, 1.5, (16, n)).astype(np.float32)
-    e, conv, it = CirculantBPDecoder(lay, 20, method).decode_syndrome(syn, probs, return_aux=True)
+    e, conv, it = CirculantBPDecoder(lay, 20, method, device="cpu").decode_syndrome(syn, probs, return_aux=True)
     ej, cj, ij = JaxDecoder(jax_lay, 20, method).decode_syndrome(syn, probs, return_aux=True)
     np.testing.assert_array_equal(conv.numpy(), np.asarray(cj))
     np.testing.assert_array_equal(e.numpy(), np.asarray(ej))
@@ -63,10 +64,10 @@ def test_decode_received_matches_jax_decoder(n, method):
     lay, jax_lay = _layouts(n)
     z = _received(n, 6)
     probs = np.full(2 * n, 0.01, np.float32)
-    out = CirculantBPDecoder(lay, 20, method).decode_received(z, probs)
+    out = CirculantBPDecoder(lay, 20, method, device="cpu").decode_received(z, probs)
     ref = JaxDecoder(jax_lay, 20, method).decode_received(z, probs)
     np.testing.assert_array_equal(out.numpy(), np.asarray(ref))
-    one = CirculantBPDecoder(lay, 20, method).decode_received(z[0], probs)
+    one = CirculantBPDecoder(lay, 20, method, device="cpu").decode_received(z[0], probs)
     np.testing.assert_array_equal(one.numpy(), np.asarray(ref)[0])
 
 
@@ -75,7 +76,7 @@ def test_decode_syndrome_single_frame_squeezes():
     err = _received(128, 9, b=1)[0]
     syn = (lay.to_dense() @ err) % 2
     probs = np.full(256, 0.01, np.float32)
-    e, conv, it = CirculantBPDecoder(lay, 20).decode_syndrome(syn, probs, return_aux=True)
+    e, conv, it = CirculantBPDecoder(lay, 20, device="cpu").decode_syndrome(syn, probs, return_aux=True)
     ej, cj, ij = JaxDecoder(jax_lay, 20).decode_syndrome(syn, probs, return_aux=True)
     assert e.shape == (256,) and conv.shape == ()
     np.testing.assert_array_equal(e.numpy(), np.asarray(ej))
@@ -122,6 +123,42 @@ def test_fer_step_rejects_unsupported_inputs():
         make_fer_step(no_identity, np.full(lay.n, 0.01, np.float32), "cpu")
 
 
+ENTRY_POINTS = [
+    "ops.circulant_bp:CirculantBPDecoder",
+    "ops.qary:QaryDecoder",
+    "ops.qary_special:QarySpecialDecoder",
+    "sim.fer:simulate_frame_error_rate_qary",
+    "models.kyber.pipeline:get_decoder",
+    "models.kyber.pipeline:simulate_kyber_attack",
+    "models.kyber.pipeline:simulate_kyber_attack_adaptive",
+]
+
+
+@pytest.mark.parametrize("entry", ENTRY_POINTS)
+def test_entry_points_default_to_the_card(entry):
+    """The port runs on the card unless the caller asks for the CPU."""
+    import importlib
+
+    module, name = entry.split(":")
+    fn = getattr(importlib.import_module(f"sca_ldpc_tpu_torch.{module}"), name)
+    assert inspect.signature(fn).parameters["device"].default == "cuda"
+
+
+def test_default_device_never_falls_back_to_the_cpu():
+    """With no device given the decoder puts its tensors on the card: without
+    one it raises there instead of decoding on the CPU."""
+    lay, _ = _layouts(128)
+    z = _received(128, 6)
+    probs = np.full(256, 0.01, np.float32)
+    dec = CirculantBPDecoder(lay, 20)
+    assert dec.device.type == "cuda"
+    if torch.cuda.is_available():
+        assert dec.decode_received(z, probs).device.type == "cuda"
+    else:
+        with pytest.raises((AssertionError, RuntimeError)):
+            dec.decode_received(z, probs)
+
+
 def test_port_runs_without_jax():
     """A process where ``import jax`` fails imports every module of the port
     and decodes on the CPU."""
@@ -139,7 +176,7 @@ def test_port_runs_without_jax():
         lay = CirculantLayout.from_first_row(random_circulant_first_row(128, 4, 5), True)
         err = np.zeros((2, 256), np.int32)
         err[0, 3] = err[1, 200] = 1
-        e = CirculantBPDecoder(lay, 20).decode_syndrome((err @ lay.to_dense().T) % 2,
+        e = CirculantBPDecoder(lay, 20, device="cpu").decode_syndrome((err @ lay.to_dense().T) % 2,
                                                        np.full(256, 0.01, np.float32))
         assert (e.numpy() == err).all()
         gen = rng_to_torch_generator(make_random_state(0), "cpu")
