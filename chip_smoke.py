@@ -13,7 +13,8 @@ two-alphabet decoder DecoderN1280R512SW6 (768 secret coefficients in
 fixed-pattern and adaptive attack simulations.  Path 4 is the HQC-192 and
 HQC-256 FER step ([circulant(35851, 30) | I] and [circulant(57637, 30) | I],
 bench.py --param-sets) at batch 2048 through K1 and through the lean kernel
-K4, which stores its message planes in bf16 as the TPU's lean kernel does.
+K4, which stores its message planes in bf16 as the TPU's lean kernel does,
+and the HQC-128 FER step through K4.
 
 Phases (each prints one line; any failure exits non-zero):
   1. build the CUDA kernels from csrc/ (one nvcc per source, in parallel)
@@ -60,29 +61,36 @@ Phases (each prints one line; any failure exits non-zero):
      simulate_kyber_attack_adaptive (seed 0, eta = 3) with full recovery;
  10. K3 (circulant_bp_lean_cuda) against its plain version at HQC-256
      (seed 0): 256 frames at error rate 0.01, decisions, flags and
-     iteration counts equal;
+     iteration counts equal; before it, ptxas's registers and spills and
+     the resident blocks of the lean kernel's two instances: fails on a
+     spill, on fewer than 32 resident warps per SM, or when the occupancy
+     calculator's blocks are not those the launch configuration counts on;
  11. K4 (circulant_fer_lean_cuda) against its plain version on the same
-     frames (flags equal), and on 512 HQC-128 frames at rate 0.05, 50
-     iterations (success counts within 2% of the frames, as phase 3); K1
-     against its plain version on the w = 30 instance that path 4 runs: 256
-     HQC-192 and 256 HQC-256 frames (the same as K3's) at rate 0.01 (flags
-     equal) and 256 of each at 0.02 (success counts within 2%);
+     frames (flags equal); K3 and K4 on the w = 20 instance that path 4
+     runs at HQC-128: 512 frames at rate 0.01, decisions, flags and
+     iteration counts equal to plain and K4's flags equal to K3's; K4 on 512
+     HQC-128 frames at rate 0.05, 50 iterations (success counts within 2%
+     of the frames, as phase 3); K1 against its plain version on the w = 30
+     instance that path 4 runs: 256 HQC-192 and 256 HQC-256 frames (the
+     same as K3's) at rate 0.01 (flags equal) and 256 of each at 0.02
+     (success counts within 2%);
  12. K2 on the HQC-128 circulant without the identity block
      (with_identity=False) against its plain version through
      CirculantBPDecoder: 512 frames, product-sum and min-sum, decisions
      equal;
  13. path 4 through the public API, with the launch counts reset before and
-     read after: fer_simulation at batch 2048, rate 0.01, 30 iterations, on
-     HQC-192 (backend "fused", K1) and HQC-256 (backends "fused" and
-     "lean"), frames/s best of 3 after a warm-up, success rate >= 0.999,
-     peak device memory; and the lean decode API (circulant_bp_lean_cuda)
-     on 2048 device-sampled HQC-256 frames;
+     read after: fer_simulation at rate 0.01, 30 iterations, backends
+     "fused" (K1) and "lean" (K4), on HQC-192 and HQC-256 at batch 2048, and
+     backend "lean" on HQC-128 at batch 4096 (phase 4 has "fused" there):
+     frames/s best of 3 ("lean": of 2) after a warm-up, success rate >=
+     0.999, peak device memory; and the lean decode API
+     (circulant_bp_lean_cuda) on 2048 device-sampled HQC-256 frames;
  14. K1 against K4 on the same 8192 device-sampled HQC-128 frames at rates
      0.03 and 0.05, 50 iterations: success counts side by side (f32 against
      bf16 message planes; reported, not gated);
- 15. K1's iteration sweep on the three FER cells' traffic (HQC-128 at batch
-     4096, HQC-192 and HQC-256 at 2048, rate 0.01): ms at max_iter 0-3
-     (best of 3), so set-up, first and each later iteration.
+ 15. K1's and K4's iteration sweeps on the three FER cells' traffic (HQC-128
+     at batch 4096, HQC-192 and HQC-256 at 2048, rate 0.01): ms at max_iter
+     0-3 (best of 3), so set-up, first and each later iteration.
 
 Then one JSON line of per-kernel results (time, plain version's time, the
 bound from ops/kernels/bounds.py with the work this run's inputs needed, and
@@ -623,6 +631,7 @@ def _lean_phases(dev, tag, lib_path, lay128):
         circulant_bp_plain,
     )
     from sca_ldpc_tpu_torch.ops.kernels.bounds import circulant_bound_ms
+    from sca_ldpc_tpu_torch.ops.kernels.circulant_cuda import circulant_lean_occupancy, circulant_lean_ptxas
     from sca_ldpc_tpu_torch.parallel import fer_simulation
     from sca_ldpc_tpu_torch.utils import make_random_state, rng_to_torch_generator
 
@@ -631,7 +640,17 @@ def _lean_phases(dev, tag, lib_path, lay128):
     n = lay256.n
 
     # ---- phase 10: K3 against its plain version at HQC-256
-    print(f"phase 10 build: {lib_path.name}; ptxas: {' | '.join(_ptxas(lib_path))}")
+    ptxas, lean_cfg = circulant_lean_ptxas(), []
+    for w_hqc in (W, W_BIG):
+        for name, occ in circulant_lean_occupancy(w_hqc, dev).items():
+            regs, spill = ptxas[name, occ["elems"]]
+            lean_cfg.append(f"w={w_hqc} {name}: {occ['elems']} variables a thread, {occ['smem_bytes']} B staged, "
+                            f"{regs} regs, {spill} B spill, {occ['resident_blocks']} blocks = "
+                            f"{occ['resident_warps']} warps/SM")
+            if spill or occ["resident_warps"] < 32 or occ["resident_blocks"] != occ["blocks_per_sm"]:
+                raise SystemExit(f"the lean kernel spills, holds fewer than 32 warps an SM, or not the "
+                                 f"{occ['blocks_per_sm']} blocks its launch configuration counts on: {lean_cfg[-1]}")
+    print(f"phase 10 build: {lib_path.name}; lean kernel instances (decode K3, fer K4): {' | '.join(lean_cfg)}")
     err = torch.from_numpy((rng.random_sample((LEAN_FRAMES, 2 * n)) < ERR).astype(np.uint8)).to(dev)
     syn = (sum(torch.roll(err[:, :n].int(), k, dims=-1) for k in lay256.shifts) + err[:, n:]) % 2
     prior = torch.full((LEAN_FRAMES, n), float(np.log((1 - ERR) / ERR)), dtype=torch.float32, device=dev)
@@ -668,6 +687,25 @@ def _lean_phases(dev, tag, lib_path, lay128):
           f"{int(ok_k.sum())}; kernel {k4_ms:.3f} ms, plain {k4_plain_ms:.3f} ms {tag}")
     if not same:
         raise SystemExit("K4: success or convergence flags differ from the plain version at rate 0.01")
+    # the w = 20 instance that path 4 runs at HQC-128 (another count of variables a thread than w = 30)
+    e_s = torch.from_numpy(_errors(np.random.RandomState(1357), CMP_FRAMES, ERR)).to(dev)
+    syn_s = (sum(torch.roll(e_s[:, :N].int(), k, dims=-1) for k in lay128.shifts) + e_s[:, N:]) % 2
+    prior_s = torch.full((CMP_FRAMES, N), float(np.log((1 - ERR) / ERR)), dtype=torch.float32, device=dev)
+    k3_s = circulant_bp_lean_cuda(prior_s, prior_s, syn_s, lay128.shifts, MAX_ITER)
+    p3_s = circulant_bp_lean_plain(prior_s, prior_s, syn_s, lay128.shifts, MAX_ITER)
+    k4_s = circulant_fer_lean_cuda(e_s, lay128.shifts, ERR, MAX_ITER)
+    p4_s = circulant_fer_lean_plain(e_s, lay128.shifts, ERR, MAX_ITER)
+    torch.cuda.synchronize()
+    same3 = all(torch.equal(a, b) for a, b in zip(k3_s, p3_s))
+    same4 = all(torch.equal(a, b) for a, b in zip(k4_s, p4_s))
+    agree = torch.equal(k4_s[0], (k3_s[0] == e_s).all(dim=-1)) and torch.equal(k4_s[1], k3_s[1])
+    print(f"phase 11 K3/K4 HQC-128 N={N} w={W} rate {ERR}, {CMP_FRAMES} frames: K3 decisions, conv and iters equal "
+          f"to plain: {same3}; K4 flags equal to plain: {same4}; K4's flags equal K3's decisions and conv: {agree}; "
+          f"successes {int(k4_s[0].sum())}, iterations mean {float(k3_s[2].float().mean()):.3f} max "
+          f"{int(k3_s[2].max())}")
+    if not (same3 and same4 and agree):
+        raise SystemExit("K3/K4 at HQC-128: kernel and plain version disagree at rate 0.01")
+    del e_s, syn_s, prior_s, k3_s, p3_s
     e_t = torch.from_numpy(_errors(rng, CMP_FRAMES, 0.05)).to(dev)
     ok_k, _ = circulant_fer_lean_cuda(e_t, lay128.shifts, 0.05, BF16_ITER)
     ok_p, _ = circulant_fer_lean_plain(e_t, lay128.shifts, 0.05, BF16_ITER)
@@ -722,17 +760,19 @@ def _lean_phases(dev, tag, lib_path, lay128):
     circulant_fer_cuda.launches = 0
     circulant_fer_lean_cuda.launches = 0
     circulant_bp_lean_cuda.launches = 0
-    frames = PS_BATCH * PS_BATCHES
-    for name, lay_b, backend in (("HQC-192", lay192, "fused"), ("HQC-256", lay256, "fused"),
-                                 ("HQC-256", lay256, "lean")):
+    for name, lay_b, backend, batch in (("HQC-128", lay128, "lean", BATCH), ("HQC-192", lay192, "fused", PS_BATCH),
+                                        ("HQC-192", lay192, "lean", PS_BATCH), ("HQC-256", lay256, "fused", PS_BATCH),
+                                        ("HQC-256", lay256, "lean", PS_BATCH)):
+        frames = batch * PS_BATCHES
         torch.cuda.reset_peak_memory_stats(dev)
         gen = rng_to_torch_generator(make_random_state(0), dev)
         probs_np = np.full(lay_b.n_vars, ERR, np.float32)
+        repeats = 2 if backend == "lean" else 3
         best, (successes, done) = _best_s(lambda: fer_simulation(
-            lay_b, probs_np, frames, gen, dev, batch=PS_BATCH, max_iter=MAX_ITER, backend=backend))
+            lay_b, probs_np, frames, gen, dev, batch=batch, max_iter=MAX_ITER, backend=backend), repeats)
         peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
         print(f"phase 13 {name} N={lay_b.n} w={lay_b.weight} fer_simulation backend {backend}: {frames} frames "
-              f"(batch {PS_BATCH}): success {successes / done:.6f}, {frames / best:.1f} frames/s (best of 3); "
+              f"(batch {batch}): success {successes / done:.6f}, {frames / best:.1f} frames/s (best of {repeats}); "
               f"peak memory {peak_gb:.2f} GB {tag}")
         if done != frames or successes / done < 0.999:
             raise SystemExit(f"{name} {backend}: success {successes}/{done} < 0.999")
@@ -774,17 +814,19 @@ def _lean_phases(dev, tag, lib_path, lay128):
 
 
 def _k1_sweep(dev, tag, lay128):
-    """Phase 15: K1's time at max_iter 0-3 on the three FER cells' traffic."""
-    from sca_ldpc_tpu_torch.ops.kernels import circulant_fer_cuda
+    """Phase 15: K1's and K4's times at max_iter 0-3 on the three FER cells' traffic."""
+    from sca_ldpc_tpu_torch.ops.kernels import circulant_fer_cuda, circulant_fer_lean_cuda
     from sca_ldpc_tpu_torch.utils import make_random_state, rng_to_torch_generator
 
     for name, lay_b, batch in (("HQC-128", lay128, BATCH), ("HQC-192", _hqc_code(N192), PS_BATCH),
                                ("HQC-256", _hqc_code(N256), PS_BATCH)):
         gen = rng_to_torch_generator(make_random_state(3), dev)
         e_b = (torch.rand((batch, lay_b.n_vars), generator=gen, device=dev) < ERR).to(torch.uint8)
-        t = [_ms(lambda m=m: circulant_fer_cuda(e_b, lay_b.shifts, ERR, m)) for m in range(4)]
-        print(f"phase 15 K1 {name} batch {batch} sweep: ms at max_iter 0/1/2/3 {' / '.join(f'{x:.3f}' for x in t)}; "
-              f"set-up {t[0]:.3f}, first iteration {t[1] - t[0]:.3f}, each later one {(t[3] - t[1]) / 2:.3f} {tag}")
+        for kernel, fer in (("K1", circulant_fer_cuda), ("K4", circulant_fer_lean_cuda)):
+            t = [_ms(lambda m=m: fer(e_b, lay_b.shifts, ERR, m)) for m in range(4)]
+            print(f"phase 15 {kernel} {name} batch {batch} sweep: ms at max_iter 0/1/2/3 "
+                  f"{' / '.join(f'{x:.3f}' for x in t)}; set-up {t[0]:.3f}, first iteration {t[1] - t[0]:.3f}, each "
+                  f"later one {(t[3] - t[1]) / 2:.3f} {tag}")
         del e_b
 
 

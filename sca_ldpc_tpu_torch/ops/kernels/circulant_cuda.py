@@ -9,8 +9,8 @@ Counterparts of ``sca_ldpc_tpu/ops/kernels/circulant_pallas.py``:
   on the card;
 - :func:`circulant_bp_lean_cuda` (``circulant_bp_pallas_lean``) and
   :func:`circulant_fer_lean_cuda` (``circulant_fer_pallas_lean``): the same
-  two entry points over the lean decode, which stores its v2c and c2v
-  planes in bf16 at the TPU kernel's rounding points (product-sum only).
+  two entry points over the lean decode, which rounds its v2c and c2v
+  messages to bf16 at the TPU kernel's rounding points (product-sum only).
 
 The first two launch ``csrc/circulant_bp.cu``, the lean pair
 ``csrc/circulant_lean.cu`` (built with ``nvcc`` at first use, see
@@ -20,7 +20,8 @@ raises.  Each wrapper counts its kernel launches in ``.launches``.
 :func:`circulant_launch` is the first pair's launch configuration for a
 device's shared-memory limits (:func:`smem_limits`): where the variable
 totals live (shared or device memory), threads a block and the padded plane
-stride.
+stride; :func:`circulant_lean_launch` is the lean pair's (how many variables
+a thread stages in shared memory).
 
 Unlike the TPU kernels, the batch need not be a multiple of a tile and the
 shifts are runtime data.  K1/K2 keep f32 messages (their TPU kernels store
@@ -60,6 +61,24 @@ class CirculantLaunch(NamedTuple):
     ld: int  # c2v plane stride in floats: N rounded up to a multiple of 32
 
 
+# K3/K4 are built with __launch_bounds__(512, 2): at most 64 registers a
+# thread, so two blocks of 512 threads (32 warps) a SM.  Each block keeps
+# the phi table and the shifts in static shared memory and, in dynamic shared
+# memory, the bf16 extrinsics of the chunk of variables it is updating: w
+# planes x LeanLaunch.elems variables a thread.
+LEAN_THREADS = 512
+LEAN_MAX_ELEMS = 4
+LEAN_STATIC_SMEM = 4 * 36 * 128 + 4 * _MAX_W
+
+
+class LeanLaunch(NamedTuple):
+    """Launch configuration of K3/K4 for one circulant weight."""
+
+    elems: int  # variables a thread holds at a time in the variable sweep
+    smem_bytes: int  # dynamic shared memory a block: w * elems * LEAN_THREADS bf16 extrinsics
+    blocks_per_sm: int  # blocks resident on one SM by design
+
+
 def smem_limits(device):
     """(dynamic shared memory one block may opt in to, one SM's shared
     memory) of a CUDA device, in bytes."""
@@ -87,6 +106,25 @@ def circulant_launch(n, w, smem_block, smem_sm):
         placement, smem = "device", shifts_bytes
     blocks = 2 if 2 * (smem + smem_sm - smem_block) <= smem_sm else 1
     return CirculantLaunch(placement, THREADS_SM // blocks, blocks, smem, _round_up(n, 32))
+
+
+def circulant_lean_launch(w, smem_block, smem_sm):
+    """K3/K4's launch configuration for circulant weight ``w`` on a device
+    with the shared-memory limits ``smem_block`` and ``smem_sm``
+    (:func:`smem_limits`): the most variables a thread (up to
+    ``LEAN_MAX_ELEMS``) whose extrinsics, with the kernel's static shared
+    memory and what CUDA reserves for each block, still fit twice on an SM;
+    if not even one a thread fits twice, the most that fit once."""
+    w = int(w)
+    if not 1 <= w <= _MAX_W:
+        raise ValueError(f"need w in [1, {_MAX_W}], got w={w}")
+    reserved = smem_sm - smem_block
+    for blocks in (2, 1):
+        for elems in range(LEAN_MAX_ELEMS, 0, -1):
+            smem = 2 * w * elems * LEAN_THREADS
+            if LEAN_STATIC_SMEM + smem <= smem_block and blocks * (LEAN_STATIC_SMEM + smem + reserved) <= smem_sm:
+                return LeanLaunch(elems, smem, blocks)
+    raise ValueError(f"shared memory of {smem_block} B a block cannot hold the lean kernel's state for w={w}")
 
 
 @functools.cache
@@ -121,17 +159,14 @@ def circulant_occupancy(n, w, method="product_sum", device="cuda"):
     return {**cfg._asdict(), "resident_blocks": blocks, "resident_warps": blocks * cfg.threads // 32}
 
 
-def circulant_ptxas():
-    """ptxas's ``-v`` report on every K1/K2 instance of the built library:
-    {(MAXW, method, placement): (registers, spill bytes stored and loaded)}
-    a thread.  Builds the library if needed (needs nvcc)."""
-    from ._build import build
-
+def _ptxas_report(lib_path, pattern, key):
+    """{key(match of ``pattern`` in an entry function's name): (registers,
+    spill bytes stored and loaded)} from the ``.log`` beside a built library."""
     out, inst, spill = {}, None, 0
-    for ln in build("circulant_bp").with_suffix(".log").read_text().splitlines():
-        m = re.search(r"circulant_bp_kernelILi(\d+)ELb(\d)ELb(\d)E", ln)
+    for ln in lib_path.with_suffix(".log").read_text().splitlines():
+        m = re.search(pattern, ln)
         if m and "Compiling entry function" in ln:
-            inst = (int(m[1]), "min_sum" if m[2] == "1" else "product_sum", "shared" if m[3] == "1" else "device")
+            inst, spill = key(m), 0
         elif inst and "spill stores" in ln:
             st, ld = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln).groups()
             spill = int(st) + int(ld)
@@ -139,6 +174,17 @@ def circulant_ptxas():
             out[inst] = (int(re.search(r"Used (\d+) registers", ln)[1]), spill)
             inst = None
     return out
+
+
+def circulant_ptxas():
+    """ptxas's ``-v`` report on every K1/K2 instance of the built library:
+    {(MAXW, method, placement): (registers, spill bytes stored and loaded)}
+    a thread.  Builds the library if needed (needs nvcc)."""
+    from ._build import build
+
+    return _ptxas_report(
+        build("circulant_bp"), r"circulant_bp_kernelILi(\d+)ELb(\d)ELb(\d)E",
+        lambda m: (int(m[1]), "min_sum" if m[2] == "1" else "product_sum", "shared" if m[3] == "1" else "device"))
 
 
 def _scratch(b, w, n, device):
@@ -156,11 +202,58 @@ def _lean_lib():
 
     lib = load("circulant_lean")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.circulant_bp_lean_decode.argtypes = [p, p, p, p, i, i, i, i, p, p, p, p, p, p, p, p, p]
+    lib.circulant_bp_lean_decode.argtypes = [p, p, p, p, i, i, i, i, i, i, i, p, p, p, p, p, p]
     lib.circulant_bp_lean_decode.restype = i
-    lib.circulant_fer_lean_step.argtypes = [p, f, p, i, i, i, i, p, p, p, p, p, p, p, p, p, p]
+    lib.circulant_fer_lean_step.argtypes = [p, f, p, i, i, i, i, i, i, i, p, p, p, p, p, p, p]
     lib.circulant_fer_lean_step.restype = i
+    lib.circulant_lean_phi_table.argtypes = [p, p, p]
+    lib.circulant_lean_phi_table.restype = i
+    lib.circulant_lean_occupancy.argtypes = [i, i, i]
+    lib.circulant_lean_occupancy.restype = i
     return lib
+
+
+def circulant_lean_occupancy(w, device="cuda"):
+    """The launch configuration of weight ``w`` on ``device`` and the resident
+    blocks and warps per SM of the lean kernel's two instances for it, from
+    the occupancy calculator: {"decode" (K3) / "fer" (K4): {"elems",
+    "smem_bytes", "blocks_per_sm" (the launch configuration's), "resident_blocks",
+    "resident_warps"}}.  Needs a CUDA device."""
+    device = torch.device(device)
+    cfg = circulant_lean_launch(w, *smem_limits(device))
+    out = {}
+    with torch.cuda.device(device):
+        for fer, name in enumerate(("decode", "fer")):
+            blocks = _lean_lib().circulant_lean_occupancy(fer, cfg.elems, cfg.smem_bytes)
+            if blocks < 0:
+                raise RuntimeError(f"circulant_lean_occupancy failed: CUDA error {-blocks}")
+            out[name] = {**cfg._asdict(), "resident_blocks": blocks, "resident_warps": blocks * LEAN_THREADS // 32}
+    return out
+
+
+def circulant_lean_ptxas():
+    """ptxas's ``-v`` report on the lean kernel's instances of the built
+    library: {("decode" (K3) / "fer" (K4), elems): (registers, spill bytes
+    stored and loaded)} a thread.  Builds the library if needed (needs nvcc)."""
+    from ._build import build
+
+    return _ptxas_report(build("circulant_lean"), r"circulant_lean_kernelILb(\d)ELi(\d)EE",
+                         lambda m: ("fer" if m[1] == "1" else "decode", int(m[2])))
+
+
+def circulant_lean_phi_table(device="cuda"):
+    """The lean kernel's shared-memory phi table as one block builds it, read
+    through its index function for every bf16 bit pattern, and the direct
+    phi of the same bf16 magnitudes: two [65536] float32 tensors indexed by
+    the bf16's bits.  Needs a CUDA device."""
+    device = torch.device(device)
+    stream = _cuda_stream(device)
+    with torch.cuda.device(device):
+        tab, direct = (torch.empty((1 << 16,), dtype=torch.float32, device=device) for _ in range(2))
+        rc = _lean_lib().circulant_lean_phi_table(tab.data_ptr(), direct.data_ptr(), stream)
+        if rc != 0:
+            raise RuntimeError(f"circulant_lean_phi_table launch failed: CUDA error {rc}")
+    return tab, direct
 
 
 def _check(x, name, shape, dtypes, device):
@@ -327,13 +420,15 @@ def _sgn(x):
 
 
 def _lean_state(b, w, n, device):
-    """The lean kernel's per-frame state, which needs no initialisation:
-    v2c and c2v [B, w, N] bf16, acc_phi [B, N] f32, acc_neg [B, N] u8 (the
-    sign parity of each check) and tot [B, N] f32."""
-    planes = [torch.empty((b, w, n), dtype=torch.bfloat16, device=device) for _ in range(2)]
-    return (*planes, torch.empty((b, n), dtype=torch.float32, device=device),
-            torch.empty((b, n), dtype=torch.uint8, device=device),
-            torch.empty((b, n), dtype=torch.float32, device=device))
+    """The lean kernel's launch configuration, its plane stride ``ld`` (N
+    rounded up to 32 bf16 values, so that every plane row starts on a
+    64-byte boundary) and its per-frame state, which needs no
+    initialisation: the messages v2c [B, w, ld] bf16 and acc [B, N] f32
+    (each check's phi sum, with its sign parity in the sign bit)."""
+    cfg = circulant_lean_launch(w, *smem_limits(device))
+    ld = _round_up(n, 32)
+    return cfg, ld, (torch.empty((b, w, ld), dtype=torch.bfloat16, device=device),
+                     torch.empty((b, n), dtype=torch.float32, device=device))
 
 
 def circulant_bp_lean_plain(prior_c, prior_i, syndrome, shifts, max_iter):
@@ -409,14 +504,15 @@ def circulant_bp_lean_cuda(prior_c, prior_i, syndrome, shifts, max_iter, method=
     with torch.cuda.device(device):
         syn = syndrome.to(torch.uint8).contiguous()
         k = torch.tensor(shifts, dtype=torch.int32, device=device)
-        state = _lean_state(b, w, n, device)
+        cfg, ld, state = _lean_state(b, w, n, device)
         e = torch.empty((b, 2 * n), dtype=torch.uint8, device=device)
         conv = torch.empty((b,), dtype=torch.uint8, device=device)
         iters = torch.empty((b,), dtype=torch.int32, device=device)
         if b:
             rc = _lean_lib().circulant_bp_lean_decode(
-                prior_c.data_ptr(), prior_i.data_ptr(), syn.data_ptr(), k.data_ptr(), w, n, b, int(max_iter),
-                *(x.data_ptr() for x in state), e.data_ptr(), conv.data_ptr(), iters.data_ptr(), stream,
+                prior_c.data_ptr(), prior_i.data_ptr(), syn.data_ptr(), k.data_ptr(), w, n, ld, b, int(max_iter),
+                cfg.elems, cfg.smem_bytes, *(x.data_ptr() for x in state), e.data_ptr(), conv.data_ptr(),
+                iters.data_ptr(), stream,
             )
             if rc != 0:
                 raise RuntimeError(f"circulant_bp_lean_decode launch failed: CUDA error {rc}")
@@ -448,15 +544,16 @@ def circulant_fer_lean_cuda(errors, shifts, error_rate, max_iter, method="produc
     with torch.cuda.device(device):
         err = errors.to(torch.uint8).contiguous()
         k = torch.tensor(shifts, dtype=torch.int32, device=device)
-        state = _lean_state(b, w, n, device)
+        cfg, ld, state = _lean_state(b, w, n, device)
         syn = torch.empty((b, n), dtype=torch.uint8, device=device)
         e_hat = torch.empty((b, 2 * n), dtype=torch.uint8, device=device)
         ok = torch.empty((b,), dtype=torch.uint8, device=device)
         conv = torch.empty((b,), dtype=torch.uint8, device=device)
         if b:
             rc = _lean_lib().circulant_fer_lean_step(
-                err.data_ptr(), prior, k.data_ptr(), w, n, b, int(max_iter), *(x.data_ptr() for x in state),
-                syn.data_ptr(), e_hat.data_ptr(), ok.data_ptr(), conv.data_ptr(), stream,
+                err.data_ptr(), prior, k.data_ptr(), w, n, ld, b, int(max_iter), cfg.elems, cfg.smem_bytes,
+                *(x.data_ptr() for x in state), syn.data_ptr(), e_hat.data_ptr(), ok.data_ptr(), conv.data_ptr(),
+                stream,
             )
             if rc != 0:
                 raise RuntimeError(f"circulant_fer_lean_step launch failed: CUDA error {rc}")

@@ -23,8 +23,11 @@ BACKENDS = {"fused": circulant_fer_cuda, "lean": circulant_fer_lean_cuda}
 
 
 def make_fer_step(layout, channel_probs, device, max_iter=50, method="product_sum", backend="fused"):
-    """Build a step: (generator, batch) -> (successes, converged), both 0-d
-    int64 tensors on ``device``.
+    """Build a step: (generator, batch) -> (successes, converged, iters), as
+    the JAX package's FER step returns them: ``successes`` and ``converged``
+    are 0-d int64 tensors on ``device``; ``iters`` is a 0-d int32 tensor of
+    -1 on ``device`` for both backends, which are the counterparts of the JAX
+    step's kernel branch (it reports no iteration count either).
 
     ``layout``: a ``[circulant | I]`` :class:`CirculantLayout`.
     ``channel_probs``: [n_vars] error probabilities, all equal.  ``generator``
@@ -48,7 +51,7 @@ def make_fer_step(layout, channel_probs, device, max_iter=50, method="product_su
         u = torch.rand((batch, n_vars), generator=generator, device=device)
         errors = (u < err).to(torch.uint8)
         ok, conv = fer_kernel(errors, shifts, err, max_iter, method)
-        return ok.sum(), conv.sum()
+        return ok.sum(), conv.sum(), torch.full((), -1, dtype=torch.int32, device=device)
 
     return step
 
@@ -65,7 +68,7 @@ def fer_simulation(layout, channel_probs, runs, generator, device, batch=None, m
     done = 0
     while done < runs:
         cur = min(batch, runs - done)
-        ok, _conv = step(generator, cur)
+        ok, _conv, _iters = step(generator, cur)
         successes += int(ok)
         done += cur
     return successes, done

@@ -7,12 +7,15 @@ without it:
     python -m pytest --noconftest tests/test_torch_cuda_lean.py
 """
 
+import re
+
 import numpy as np
 import pytest
 import torch
 
 from sca_ldpc_tpu_torch.codes import CirculantLayout, random_circulant_first_row
 from sca_ldpc_tpu_torch.ops import CirculantBPDecoder
+from sca_ldpc_tpu_torch.ops.circulant_bp import _phi
 from sca_ldpc_tpu_torch.ops.kernels import (
     circulant_bp_cuda,
     circulant_bp_lean_cuda,
@@ -20,6 +23,13 @@ from sca_ldpc_tpu_torch.ops.kernels import (
     circulant_bp_plain,
     circulant_fer_lean_cuda,
     circulant_fer_lean_plain,
+)
+from sca_ldpc_tpu_torch.ops.kernels._build import build
+from sca_ldpc_tpu_torch.ops.kernels.circulant_cuda import (
+    LEAN_STATIC_SMEM,
+    circulant_lean_occupancy,
+    circulant_lean_phi_table,
+    circulant_lean_ptxas,
 )
 from sca_ldpc_tpu_torch.parallel import fer_simulation
 from sca_ldpc_tpu_torch.utils import make_random_state, rng_to_torch_generator
@@ -85,6 +95,103 @@ def test_lean_fer_kernel_matches_plain(cuda, n, w, b, rate):
     torch.cuda.synchronize()
     assert circulant_fer_lean_cuda.launches == before + 1
     assert torch.equal(ok, ok_p) and torch.equal(conv, conv_p)
+
+
+def test_phi_table_equals_direct_phi_for_every_bf16_value(cuda):
+    """The table one block builds in shared memory, read through the
+    kernel's index function for all 65,536 bf16 bit patterns, equals the
+    direct phi() of the same value bit for bit (NaNs left out), holds
+    phi(1e-9) under the clamp and phi(60) = -0.0 above it, and agrees with
+    the plain version's phi to float32 rounding of log and tanh."""
+    tab, direct = circulant_lean_phi_table(cuda)
+    torch.cuda.synchronize()
+    bits = torch.arange(1 << 16, dtype=torch.int32, device=cuda)
+    keep = (bits & 0x7FFF) <= 0x7F80
+    assert int(keep.sum()) == 2 * (0x7F80 + 1)
+    assert torch.equal(tab.view(torch.int32)[keep], direct.view(torch.int32)[keep])
+    x = bits.to(torch.int16).view(torch.bfloat16).float().abs()
+    assert torch.equal(tab[keep & (x < 1e-9)].unique(), tab[:1]) and 20.0 < float(tab[0]) < 22.0
+    above = tab[keep & (x >= 60.0)]
+    assert bool((above == 0).all()) and bool(torch.signbit(above).all())
+    torch.testing.assert_close(tab[keep], _phi(x[keep]), rtol=1e-5, atol=2e-7)
+
+
+# (n, w, batch): odd and even N, a batch of one, the weights' two ends
+EDGE_CASES = [(151, 1, 5), (150, 1, 1), (1021, 64, 3), (1024, 64, 1), (257, 7, 1)]
+
+
+def _edge_priors(b, n, seed, device):
+    """Channel priors at both ends of phi's clamp and beyond: above 60, under
+    1e-9, zero, negative, and bf16 values that round across 60."""
+    rng = np.random.RandomState(seed)
+    pc = (4.0 + rng.uniform(-1, 1, (b, n))).astype(np.float32)
+    pi = np.full((b, n), 4.0, np.float32)
+    for col, val in enumerate((69.0, 1e-12, 0.0, -0.0, -0.75, 60.0, 60.2, 59.9, 9.9e-10, 1e-9, 1e30, -61.0)):
+        pc[:, col] = val
+        pi[:, n - 1 - col] = val
+    return torch.from_numpy(pc).to(device), torch.from_numpy(pi).to(device)
+
+
+@pytest.mark.parametrize("max_iter", [1, 2, 20])
+@pytest.mark.parametrize("n,w,b", EDGE_CASES)
+def test_lean_kernels_match_plain_at_the_edges(cuda, n, w, b, max_iter):
+    """K3 and K4 against their plain versions at odd N, batch 1, w = 1 and
+    w = 64, with priors at both ends of the clamp; max_iter 1 and 2 hold the
+    first iteration, which reads no plane, and the first that does."""
+    # any w distinct shifts: a first row of weight 64 with a flat distance spectrum needs a larger N
+    shifts = tuple(int(k) for k in np.sort(np.random.RandomState(5).choice(n, w, replace=False)))
+    lay = CirculantLayout(n=n, shifts=shifts, with_identity=True)
+    rate = 0.005
+    err, _, _, syn = _inputs(lay, b, rate, 7, cuda)
+    pc, pi = _edge_priors(b, n, 8, cuda)
+    got = circulant_bp_lean_cuda(pc, pi, syn, lay.shifts, max_iter)
+    ref = circulant_bp_lean_plain(pc, pi, syn, lay.shifts, max_iter)
+    torch.cuda.synchronize()
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+    for fer_rate in (rate, 0.3, 0.8):  # a prior that is large, small, and negative
+        got = circulant_fer_lean_cuda(err, lay.shifts, fer_rate, max_iter)
+        ref = circulant_fer_lean_plain(err, lay.shifts, fer_rate, max_iter)
+        torch.cuda.synchronize()
+        for g, r in zip(got, ref):
+            assert torch.equal(g, r)
+
+
+def test_lean_kernels_are_deterministic(cuda):
+    """Two runs of K3 and of K4 on the same noisy frames give the same bits:
+    every sum keeps its order and nothing is accumulated with atomics."""
+    lay = _layout(1021, 20)
+    err, pc, pi, syn = _inputs(lay, 64, 0.04, 9, cuda)
+    runs = [circulant_bp_lean_cuda(pc, pi, syn, lay.shifts, 20) for _ in range(2)]
+    fer = [circulant_fer_lean_cuda(err, lay.shifts, 0.04, 20) for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b in zip(runs[0] + fer[0], runs[1] + fer[1]):
+        assert torch.equal(a, b)
+    assert not runs[0][1].all() and runs[0][1].any()
+
+
+def test_lean_kernel_keeps_its_registers_and_occupancy(cuda):
+    """Every instance within 64 registers a thread; those that w = 20 and
+    w = 30 launch have no spills and hold two blocks of 512 threads (32
+    warps) on an SM with their staged extrinsics."""
+    ptxas = circulant_lean_ptxas()
+    assert set(ptxas) == {(name, elems) for name in ("decode", "fer") for elems in (1, 2, 3, 4)}
+    assert all(regs <= 64 for regs, _ in ptxas.values())
+    for w in (20, 30):
+        occ = circulant_lean_occupancy(w, cuda)
+        assert set(occ) == {"decode", "fer"}
+        for name, got in occ.items():
+            assert ptxas[name, got["elems"]][1] == 0
+            assert (got["blocks_per_sm"], got["resident_blocks"], got["resident_warps"]) == (2, 2, 32)
+
+
+def test_lean_launch_counts_the_static_shared_memory_ptxas_reports(cuda):
+    """``circulant_lean_launch`` budgets ``LEAN_STATIC_SMEM`` bytes a block for
+    the phi table and the shifts: what ptxas reports for each of the kernel's
+    eight instances (18,688 B)."""
+    log = build("circulant_lean").with_suffix(".log").read_text()
+    smem = re.findall(r"circulant_lean_kernel[^\n]*\n(?:(?!Compiling entry)[^\n]*\n)*?[^\n]*?(\d+) bytes smem", log)
+    assert len(smem) == 8 and {int(x) for x in smem} == {LEAN_STATIC_SMEM} == {18688}
 
 
 def test_lean_kernels_with_zero_iterations_and_empty_batch(cuda):

@@ -239,11 +239,12 @@ def test_fer_step_lean_backend_on_cpu():
     step = make_fer_step(lay, probs, "cpu", max_iter=20, backend="lean")
     gen = rng_to_torch_generator(make_random_state(1), "cpu")
     state = gen.get_state()
-    ok, conv = step(gen, 32)
+    ok, conv, iters = step(gen, 32)
     gen.set_state(state)
     errors = (torch.rand((32, lay.n_vars), generator=gen) < float(probs[0])).to(torch.uint8)
     ok_p, conv_p = circulant_fer_lean_plain(errors, lay.shifts, float(probs[0]), 20)
     assert (int(ok), int(conv)) == (int(ok_p.sum()), int(conv_p.sum()))
+    assert iters.dtype == torch.int32 and iters.shape == () and int(iters) == -1
     gen = rng_to_torch_generator(make_random_state(0), "cpu")
     successes, frames = fer_simulation(lay, probs * 0.1, 20, gen, "cpu", batch=8, max_iter=20, backend="lean")
     assert frames == 20 and 18 <= successes <= 20

@@ -103,13 +103,40 @@ def test_fer_step_matches_jax_decode_of_the_same_errors():
     step = make_fer_step(lay, probs, "cpu", max_iter=20)
     gen = rng_to_torch_generator(make_random_state(1), "cpu")
     state = gen.get_state()
-    ok, conv = step(gen, 32)
+    ok, conv, _ = step(gen, 32)
     gen.set_state(state)
     errors = (torch.rand((32, lay.n_vars), generator=gen) < float(probs[0])).numpy().astype(np.int32)
     syn = (errors @ lay.to_dense().T) % 2
     e, cj, _ = JaxDecoder(jax_lay, 20).decode_syndrome(syn, probs, return_aux=True)
     assert int(ok) == int((np.asarray(e) == errors).all(axis=-1).sum())
     assert int(conv) == int(np.asarray(cj).sum())
+
+
+@pytest.mark.parametrize("backend", ["fused", "lean"])
+def test_fer_step_returns_the_jax_steps_three_values(backend):
+    """The JAX step (its XLA branch on a one-device mesh: the kernel branch
+    has no interpret switch) and the port's step on the same small code both
+    return (successes, converged, iters), scalars of integer kinds; the
+    port's iters is the -1 that the JAX step's kernel branch returns."""
+    import jax
+
+    from sca_ldpc_tpu.parallel import make_mesh
+    from sca_ldpc_tpu.parallel.fer import make_sharded_fer_step
+
+    lay, jax_lay = _layouts(128)
+    probs = np.full(lay.n_vars, 0.01, np.float32)
+    mesh = make_mesh(data=1, model=1, devices=[jax.devices()[0]])
+    ref = make_sharded_fer_step(jax_lay, probs, mesh, max_iter=20)(jax.random.PRNGKey(0), 16)
+    gen = rng_to_torch_generator(make_random_state(1), "cpu")
+    out = make_fer_step(lay, probs, "cpu", max_iter=20, backend=backend)(gen, 16)
+    assert len(ref) == len(out) == 3
+    for r, o in zip(ref, out):
+        assert np.asarray(r).shape == () and isinstance(o, torch.Tensor) and o.shape == () and o.device.type == "cpu"
+        assert np.issubdtype(np.asarray(r).dtype, np.integer) and not o.dtype.is_floating_point
+    successes, converged, iters = out
+    assert 14 <= int(successes) <= 16 and int(successes) <= int(converged) <= 16
+    assert 14 <= int(ref[0]) <= 16 and 1 <= int(ref[2]) <= 20
+    assert iters.dtype == torch.int32 and int(iters) == -1 and np.asarray(ref[2]).dtype == np.int32
 
 
 def test_fer_step_rejects_unsupported_inputs():
