@@ -50,7 +50,11 @@ Phases (each prints one line; any failure exits non-zero):
   8. K7 (qary_special_min_sum_fused_cuda) against the plain decode on
      DecoderN1280R512SW6: 512 frames of Dirichlet channels, 10 iterations,
      B and sum decisions equal on every frame, at eta = 2 and at the
-     adaptive path's eta = 3 (QB = 7, QS = 37);
+     adaptive path's eta = 3 (QB = 7, QS = 37), each on the instance that
+     special_fused_launch picks from the card's limits; before it, ptxas's
+     registers and spills of every K7 instance, and for each eta the warps a
+     block and blocks an SM picked and the blocks the occupancy calculator
+     holds resident (fails if fewer than picked);
   9. path 3 through the public API, with the launch counts reset before and
      read after: QarySpecialDecoder.min_sum_llr at batch 4096, 10 iterations,
      on bench.py's Kyber channel (B-symbol 0 at 0.92, the others 0.02, sums
@@ -59,6 +63,7 @@ Phases (each prints one line; any failure exits non-zero):
      simulate_kyber_attack (seed 7, accuracy 0.995, 2 runs) on the card,
      equal to the same call on the CPU with >= 95% of coefficients right;
      simulate_kyber_attack_adaptive (seed 0, eta = 3) with full recovery;
+     every K7 instance these launch was held against plain in phase 8;
  10. K3 (circulant_bp_lean_cuda) against its plain version at HQC-256
      (seed 0): 256 frames at error rate 0.01, decisions, flags and
      iteration counts equal; before it, ptxas's registers and spills and
@@ -512,7 +517,8 @@ def _kyber_phases(dev, tag):
         chain_exclusive_cuda,
         qary_special_min_sum_fused_cuda,
         qary_special_min_sum_fused_plain,
-        special_fused_smem_bytes,
+        special_fused_occupancy,
+        special_fused_ptxas,
     )
     from sca_ldpc_tpu_torch.utils import make_random_state
 
@@ -521,7 +527,9 @@ def _kyber_phases(dev, tag):
     n_b, r = H.shape[1] - H.shape[0], H.shape[0]
 
     # ---- phase 8: K7 against the plain decode
-    k7 = {}
+    print("phase 8 K7 instances (warps a block): " + " | ".join(
+        f"{w} {regs} regs/{spill} B spill" for w, (regs, spill) in special_fused_ptxas().items()))
+    k7, held = {}, set()
     for eta in (2, 3):
         bsum = KY_SW * eta
         dec = QarySpecialDecoder(H, eta, bsum, KY_ITER, backend="fused", device=dev)
@@ -533,6 +541,8 @@ def _kyber_phases(dev, tag):
         llr_s = llr_s.index_select(1, dec._sum_var).contiguous()
         vsum = _signed(llr_s, dec._args[6]).contiguous()
         args = (llr_b, llr_s, vsum, *dec._args[:4], dec._args[6], eta, bsum, KY_ITER)
+        occ = special_fused_occupancy(n_b, r, KY_SW, eta, bsum, dev)
+        held.add(occ["warps"])
         hb_k, hs_k = qary_special_min_sum_fused_cuda(*args)
         hb_p, hs_p = qary_special_min_sum_fused_plain(*args)
         torch.cuda.synchronize()
@@ -543,17 +553,21 @@ def _kyber_phases(dev, tag):
         bound = chain_bound_ms(CMP_FRAMES * r * KY_ITER, KY_SW, eta, (2 * KY_SW - 1) * eta, eta, bsum,
                                _nbytes(*(x for x in args if isinstance(x, torch.Tensor)), hb_k, hs_k))
         k7[eta] = (err, ms, plain_ms, bound)
-        smem = special_fused_smem_bytes(n_b, r, KY_SW, eta, bsum)
-        print(f"phase 8 K7 DecoderN1280R512SW6 eta {eta} (QB {2 * eta + 1}, QS {2 * bsum + 1}, {smem} B shared "
-              f"memory a frame), {CMP_FRAMES} Dirichlet frames, {KY_ITER} iterations: decisions differ on {differ} "
-              f"frames, max_abs_err {err}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms {tag}")
+        print(f"phase 8 K7 DecoderN1280R512SW6 eta {eta} (QB {2 * eta + 1}, QS {2 * bsum + 1}): {occ['warps']} warps "
+              f"a block, {occ['blocks_per_sm']} blocks an SM picked, {occ['resident_blocks']} resident "
+              f"({occ['resident_warps']} warps), {occ['smem_bytes']} B shared memory a block; {CMP_FRAMES} Dirichlet "
+              f"frames, {KY_ITER} iterations: decisions differ on {differ} frames, max_abs_err {err}; kernel "
+              f"{ms:.3f} ms, plain {plain_ms:.3f} ms {tag}")
         if differ:
             raise SystemExit(f"K7 eta {eta}: hard decisions differ from the plain version")
+        if occ["resident_blocks"] < occ["blocks_per_sm"] or occ["lib_smem_bytes"] != occ["smem_bytes"]:
+            raise SystemExit(f"K7 eta {eta}: the launch configuration is not what the card holds: {occ}")
 
     # ---- phase 9: path 3 through the public API
     torch.cuda.synchronize()
     chain_exclusive_cuda.launches = 0
     qary_special_min_sum_fused_cuda.launches = 0
+    qary_special_min_sum_fused_cuda.instances = set()
     ch_b = np.full((BATCH, n_b, 5), 0.02, np.float32)
     ch_b[:, :, 2] = 0.92
     ch_s = np.zeros((BATCH, r, 25), np.float32)
@@ -595,9 +609,13 @@ def _kyber_phases(dev, tag):
     torch.cuda.synchronize()
     launches = {"qary_special_min_sum_fused_cuda": qary_special_min_sum_fused_cuda.launches,
                 "chain_exclusive_cuda": chain_exclusive_cuda.launches}
-    print(f"phase 9 launches {launches}")
+    launched = qary_special_min_sum_fused_cuda.instances
+    print(f"phase 9 launches {launches}; K7 instances launched {sorted(launched)}, held against plain in phase 8 "
+          f"{sorted(held)}")
     if min(launches.values()) <= 0:
         raise SystemExit(f"a kernel of the Kyber path was not launched: {launches}")
+    if not launched <= held:
+        raise SystemExit(f"K7 instances {sorted(launched - held)} ran on the Kyber path unchecked against plain")
 
     return [
         _entry("qary_special_min_sum_fused_cuda", "sca_ldpc_tpu_torch/csrc/qary_min_sum.cu",

@@ -55,20 +55,38 @@
 // Kyber-768, eta = 2), the sum-variable channel and its signed form
 // [R, QS] stay in device memory (each row is read once an iteration, from
 // L1/L2).  Per iteration:
-//   check sweep     one warp per check: the row's signed sum channel is the
-//                   chain's extra operand (K5 with extra), written in place
-//                   and reversed as c2v;
+//   check sweep     one warp per check (special_check): K5's chain with the
+//                   row's signed sum channel as the extra operand, written
+//                   in place and reversed as c2v;
 //   variable sweep  tot_b = channel + ((u_0 + u_1) + ...), through var_flat;
 //   edge sweep      as K6 (skipped in the last iteration: nothing reads it).
 // The sum totals of a fixed-iteration decode depend only on the v2c at the
 // start of the last iteration, so the last check sweep first forms the full
 // conv of the row's SW B-messages to +-BSUM (before the chain overwrites
 // them), adds the row's sum channel and writes argmin - BSUM out: no tot_s
-// buffer.  A frame takes about 83 KB at Kyber-768 (2 blocks per SM) and
-// 116 KB at eta = 3 (QB = 7, QS = 37; 1 block per SM).  Bound: as K6, the
-// check sweep's min-plus terms, 2,230 add+min pairs a row at Kyber-768
-// (1.1e6 a frame-iteration), on output windows of 5 symbols that leave most
-// of a warp's lanes idle.
+// buffer.  Bound: as K6, the check sweep's min-plus terms, 2,230 add+min
+// pairs a row at Kyber-768 (1.1e6 a frame-iteration), on output windows of
+// 5 symbols that leave most of a warp's lanes idle.  Two things answer it:
+//   - Resident warps.  The frame's state, not the warps' scratch, fills
+//     shared memory (76,800 B at Kyber-768, eta = 2; 107,520 B at eta = 3,
+//     QB = 7, QS = 37), so a block runs as many warps as the registers allow
+//     (32 at 64 a thread) when it fits: the kernel has an instance for 32,
+//     16 and 8 warps a block and the host's special_fused_launch() takes the
+//     largest that fits the card's shared memory (one block of 32 warps an SM
+//     at Kyber-768, eta 2 and 3; 8 warps before, 16 and 8 warps an SM).
+//   - Idle lanes.  A slot's output window is 2B+1 symbols, but its extra
+//     conv's term window is 2BSUM+1: walked slot by slot on 2B+1 lanes these
+//     convs were 150 of a row's 222 serial term steps at eta = 2.  The combine
+//     outputs of all SW slots are kept side by side and every slot's extra
+//     conv runs in one pass, a lane on each (slot, output): 25 steps.  Step t
+//     of the prefix chain and step t of the suffix chain have the same shapes
+//     and run in one pass too (conv_out(), a lane on each (chain, output)).
+// Each output is still one min over exactly minplus.conv's terms.  Measured
+// on an H100 80GB HBM3 at 700 W (tools/qary_forms.py, against the 8-warp
+// form before; 10 iterations, batch 4096): 124.5 -> 57.8 ms at eta = 2,
+// 252.2 -> 85.5 ms at eta = 3.  The prefix, suffix and combine walks take
+// most of an iteration now, each term a bounds test and two shared-memory
+// loads around its add and min.
 
 #include <cmath>
 #include <cstdint>
@@ -309,18 +327,109 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// Output k of conv_warp(a, sa, ha, b, sb, hb, s_out): the same terms, by one lane.
+__device__ float conv_out(const float* a, int sa, int ha, const float* b, int sb, int hb, int s_out, int k) {
+  ha = ha < sa ? ha : sa;
+  hb = hb < sb ? hb : sb;
+  if (hb < ha) {
+    const float* t = a;
+    a = b;
+    b = t;
+    int x = sa;
+    sa = sb;
+    sb = x;
+    x = ha;
+    ha = hb;
+    hb = x;
+  }
+  const int off = sa + sb - s_out;
+  const int wb = 2 * sb + 1;
+  float acc = INFINITY;
+  for (int i = sa - ha; i <= sa + ha; ++i) {
+    const int j = off - i + k;
+    const float bv = (j >= 0 && j < wb) ? b[j] : kBig;
+    acc = fminf(acc, a[i] + bv);
+  }
+  return fminf(acc, kBig);
+}
+
+// K7's check update of one row, by one warp: chain_check with the row's
+// signed sum channel ex [2 bsum + 1] as the extra operand and the same term
+// sets, written in place of m [sw, qb] and reversed as c2v.  scratch:
+// special_check_floats(sw, b, bsum) floats.
+__device__ void special_check(float* m, int sw, int b, int s_mid, const float* ex, int bsum, float* scratch,
+                              int lane) {
+  const int qb = 2 * b + 1;
+  const int s_pre = b + bsum;
+  const int wp = 2 * s_pre + 1;
+  const int pf = partial_offset(sw, sw, b, s_pre, s_mid);
+  float* pre = scratch;  // prefix[c]: conv of operands 0..c-1
+  float* suf = pre + pf;  // suffix by count: conv of the last `count` operands
+  float* tmp = suf + pf;  // combine outputs
+  if (lane == 0) {
+    pre[0] = 0.0f;
+    suf[0] = 0.0f;
+  }
+  __syncwarp();
+  // Step t of the prefix chain (operand t onto the partial of t operands) and
+  // of the suffix chain (operand sw-1-t onto the last t) have the same
+  // shapes: both in one pass, a lane on each (chain, output).
+  int off_c = 0;
+  for (int t = 0; t < sw - 1; ++t) {
+    const int ct = cap_of(t, sw, b, s_pre, s_mid);
+    const int cn = cap_of(t + 1, sw, b, s_pre, s_mid);
+    const int off_n = off_c + 2 * ct + 1;
+    const int w = 2 * cn + 1;
+    for (int p = lane; p < 2 * w; p += 32) {
+      const bool s = p >= w;
+      const int k = s ? p - w : p;
+      float* part = s ? suf : pre;
+      part[off_n + k] = conv_out(m + (s ? sw - 1 - t : t) * qb, b, b, part + off_c, ct, t * b, cn, k);
+    }
+    __syncwarp();
+    off_c = off_n;
+  }
+  // every slot's combine output, side by side in tmp [sw][wp]
+  for (int j = 0; j < sw; ++j) {
+    const int cnt_s = sw - 1 - j;
+    conv_warp(pre + partial_offset(j, sw, b, s_pre, s_mid), cap_of(j, sw, b, s_pre, s_mid), j * b,
+              suf + partial_offset(cnt_s, sw, b, s_pre, s_mid), cap_of(cnt_s, sw, b, s_pre, s_mid), cnt_s * b, s_pre,
+              tmp + j * wp, 1, lane);
+  }
+  __syncwarp();
+  // Every slot's extra conv in one pass, a lane on each (slot, output):
+  // conv_warp(ex, bsum, bsum, tmp_j, s_pre, s_pre, b) takes no operand swap
+  // (s_pre > bsum), and its output k is the min over i in [0, 2 bsum] of
+  // ex[i] + tmp_j[2 bsum + k - i], every index inside tmp_j.
+  for (int p = lane; p < sw * qb; p += 32) {
+    const int j = p / qb;
+    const int k = p - j * qb;
+    const float* t = tmp + j * wp + 2 * bsum + k;
+    float acc = INFINITY;
+    for (int i = 0; i <= 2 * bsum; ++i) acc = fminf(acc, ex[i] + t[-i]);
+    m[j * qb + qb - 1 - k] = fminf(acc, kBig);
+  }
+  __syncwarp();
+}
+
+// Floats of special_check's scratch: the prefix and suffix partials and the
+// sw combine outputs.
+long long special_check_floats(int sw, int b, int bsum) {
+  const int s_pre = b + bsum;
+  return 2LL * partial_offset(sw, sw, b, s_pre, (2 * sw - 1) * b) + static_cast<long long>(sw) * (2 * s_pre + 1);
+}
+
 // Floats of one K7 warp's slice: the row's signed sum channel [qs], then
 // scratch for the chain with extra (or for the full conv's two [qs] buffers).
 long long special_warp_floats(int sw, int b, int bsum) {
   const int qs = 2 * bsum + 1;
-  const int s_pre = b + bsum;
-  const long long chain = 2LL * partial_offset(sw, sw, b, s_pre, (2 * sw - 1) * b) + 2 * s_pre + 1;
+  const long long chain = special_check_floats(sw, b, bsum);
   return qs + (chain > 2LL * qs ? chain : 2LL * qs);
 }
 
-long long special_fused_floats(int nb, int r, int sw, int b, int bsum) {
+long long special_fused_floats(int nb, int r, int sw, int b, int bsum, int warps) {
   const long long qb = 2 * b + 1;
-  return static_cast<long long>(r) * sw * qb + nb * qb + kWarps * special_warp_floats(sw, b, bsum);
+  return static_cast<long long>(r) * sw * qb + nb * qb + warps * special_warp_floats(sw, b, bsum);
 }
 
 // The sum variable's decision for one check, by one warp: the full conv of
@@ -358,14 +467,17 @@ __device__ void sum_decision(const float* m, int sw, int b, int bsum, const floa
   __syncwarp();
 }
 
-// K7: the whole two-alphabet decode of one frame per block.
-__global__ void __launch_bounds__(kThreads)
+// K7: the whole two-alphabet decode of one frame per block of kW warps, at
+// most 64 registers a thread (32 warps an SM as far as registers go).
+template <int kW>
+__global__ void __launch_bounds__(kW * 32, 32 / kW)
     qary_special_fused_kernel(const float* __restrict__ channel, const float* __restrict__ chs,
                               const float* __restrict__ vsum, const int* __restrict__ bvar_idx,
                               const int* __restrict__ bvar_sign, const int* __restrict__ bvar_mask,
                               const int* __restrict__ var_flat, const int* __restrict__ sum_sign, int nb, int r,
                               int sw, int dv, int b, int bsum, int max_iter, int warp_floats,
                               int* __restrict__ hard_b, int* __restrict__ hard_s) {
+  constexpr int kThreads = kW * 32;
   extern __shared__ float smem[];
   const int qb = 2 * b + 1;
   const int qs = 2 * bsum + 1;
@@ -399,12 +511,12 @@ __global__ void __launch_bounds__(kThreads)
   for (int it = 0; it < max_iter; ++it) {
     const bool last = it == max_iter - 1;
     // ---- check sweep: c2v in place of v2c (last iteration: sum decisions first)
-    for (int i = warp; i < r; i += kWarps) {
+    for (int i = warp; i < r; i += kW) {
       float* m = v2c + i * sw * qb;
       for (int t = lane; t < qs; t += 32) ex[t] = vs[i * qs + t];
       __syncwarp();
       if (last) sum_decision(m, sw, b, bsum, cs + i * qs, sum_sign[i] < 0, scratch, hs + i, lane);
-      chain_check(m, sw, qb, s_mid, b, ex, bsum, scratch, m, qb, true, lane);
+      special_check(m, sw, b, s_mid, ex, bsum, scratch, lane);
     }
     __syncthreads();
 
@@ -513,9 +625,39 @@ extern "C" int qary_min_sum_fused(const float* channel, const int* chk_var, cons
   return static_cast<int>(cudaGetLastError());
 }
 
-// Dynamic shared memory of one K7 block (one frame).
-extern "C" long long qary_special_fused_smem_bytes(int nb, int r, int sw, int b, int bsum) {
-  return special_fused_floats(nb, r, sw, b, bsum) * static_cast<long long>(sizeof(float));
+// K7's instances: 32, 16 or 8 warps a block; the host's
+// special_fused_launch() picks one from the card's shared-memory limits.
+namespace {
+
+using SpecialKernel = void (*)(const float*, const float*, const float*, const int*, const int*, const int*,
+                               const int*, const int*, int, int, int, int, int, int, int, int, int*, int*);
+
+SpecialKernel special_instance(int warps) {
+  switch (warps) {
+    case 32: return qary_special_fused_kernel<32>;
+    case 16: return qary_special_fused_kernel<16>;
+    case 8: return qary_special_fused_kernel<8>;
+    default: return nullptr;
+  }
+}
+
+}  // namespace
+
+// Dynamic shared memory of one K7 block (one frame) of `warps` warps.
+extern "C" long long qary_special_fused_smem_bytes(int nb, int r, int sw, int b, int bsum, int warps) {
+  return special_fused_floats(nb, r, sw, b, bsum, warps) * static_cast<long long>(sizeof(float));
+}
+
+// Blocks of K7's `warps` instance resident on one SM at `smem` bytes of
+// dynamic shared memory, from the occupancy calculator; a negative
+// cudaError_t on failure.
+extern "C" int qary_special_fused_occupancy(int warps, int smem) {
+  const SpecialKernel kernel = special_instance(warps);
+  if (kernel == nullptr || smem < 0 || smem > kMaxSmem) return -static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  int n = 0;
+  if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, warps * 32, smem);
+  return err == cudaSuccess ? n : -static_cast<int>(err);
 }
 
 // K7 (replaces qary_special_min_sum_fused).  channel [batch, nb, 2b+1] f32
@@ -524,23 +666,24 @@ extern "C" long long qary_special_fused_smem_bytes(int nb, int r, int sw, int b,
 // sum_sign is -1; bvar_idx/bvar_sign/bvar_mask [r, sw] int32 (pads: mask 0),
 // var_flat [nb, dv] int32 into [r*sw] (pads: r*sw), sum_sign [r] int32;
 // hard_b [batch, nb] int32 in [-b..b], hard_s [batch, r] int32 in
-// [-bsum..bsum], row order.  Returns a cudaError_t.
+// [-bsum..bsum], row order; warps a block 32, 16 or 8.  Returns a
+// cudaError_t.
 extern "C" int qary_special_min_sum_fused(const float* channel, const float* chs, const float* vsum,
                                           const int* bvar_idx, const int* bvar_sign, const int* bvar_mask,
                                           const int* var_flat, const int* sum_sign, int batch, int nb, int r, int sw,
-                                          int dv, int b, int bsum, int max_iter, int* hard_b, int* hard_s,
+                                          int dv, int b, int bsum, int max_iter, int warps, int* hard_b, int* hard_s,
                                           void* stream) {
-  if (batch < 0 || nb < 1 || r < 1 || sw < 1 || dv < 1 || b < 1 || bsum < 1 || max_iter < 0) {
+  const SpecialKernel kernel = special_instance(warps);
+  if (batch < 0 || nb < 1 || r < 1 || sw < 1 || dv < 1 || b < 1 || bsum < 1 || max_iter < 0 || kernel == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const long long smem = qary_special_fused_smem_bytes(nb, r, sw, b, bsum);
+  const long long smem = qary_special_fused_smem_bytes(nb, r, sw, b, bsum, warps);
   if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
   if (batch == 0) return 0;
-  cudaError_t err = cudaFuncSetAttribute(qary_special_fused_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const int warp_floats = static_cast<int>(special_warp_floats(sw, b, bsum));
-  qary_special_fused_kernel<<<batch, kThreads, static_cast<size_t>(smem), static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<batch, warps * 32, static_cast<size_t>(smem), static_cast<cudaStream_t>(stream)>>>(
       channel, chs, vsum, bvar_idx, bvar_sign, bvar_mask, var_flat, sum_sign, nb, r, sw, dv, b, bsum, max_iter,
       warp_floats, hard_b, hard_s);
   return static_cast<int>(cudaGetLastError());

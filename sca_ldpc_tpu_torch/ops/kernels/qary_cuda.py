@@ -27,15 +27,29 @@ matrices.
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
 from ..minplus import chain_exclusive
-from .circulant_cuda import _check, _cuda_stream
+from .circulant_cuda import _check, _cuda_stream, _ptxas_report, smem_limits
 
-MAX_SMEM_BYTES = 232448  # dynamic shared memory a Hopper block may use
 _F32 = (torch.float32,)
 _I32 = (torch.int32,)
+
+# K7's instances, warps a block (one frame): each is built with
+# __launch_bounds__(32 * warps, 32 / warps), at most 64 registers a thread,
+# so 32 warps an SM as far as registers go.
+SPECIAL_WARPS = (32, 16, 8)
+SPECIAL_SM_WARPS = 32
+
+
+class SpecialLaunch(NamedTuple):
+    """Launch configuration of K7 for one code and alphabet."""
+
+    warps: int  # warps a block (one frame)
+    blocks_per_sm: int  # blocks resident on one SM by design
+    smem_bytes: int  # dynamic shared memory a block
 
 
 @functools.cache
@@ -52,10 +66,12 @@ def _lib():
     lib.qary_chain_smem_bytes.restype = ll
     lib.qary_fused_smem_bytes.argtypes = [i, i, i, i]
     lib.qary_fused_smem_bytes.restype = ll
-    lib.qary_special_min_sum_fused.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, p, p, p]
+    lib.qary_special_min_sum_fused.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, p, p, p]
     lib.qary_special_min_sum_fused.restype = i
-    lib.qary_special_fused_smem_bytes.argtypes = [i, i, i, i, i]
+    lib.qary_special_fused_smem_bytes.argtypes = [i, i, i, i, i, i]
     lib.qary_special_fused_smem_bytes.restype = ll
+    lib.qary_special_fused_occupancy.argtypes = [i, i]
+    lib.qary_special_fused_occupancy.restype = i
     return lib
 
 
@@ -64,9 +80,76 @@ def fused_smem_bytes(n, r, dc, q):
     return _lib().qary_fused_smem_bytes(n, r, dc, q)
 
 
-def special_fused_smem_bytes(n_b, r, sw, b, bsum):
-    """Dynamic shared memory one K7 frame needs, in bytes (from the library)."""
-    return _lib().qary_special_fused_smem_bytes(n_b, r, sw, b, bsum)
+def _cap(count, d, b_sup, s_pre, s_mid):
+    """Stored support of a partial conv of ``count`` operands (the kernel's cap_of)."""
+    return min(count * b_sup, s_pre + (d - 1 - count) * b_sup, s_mid)
+
+
+def special_warp_floats(sw, b, bsum):
+    """Floats of one K7 warp's slice of shared memory (the kernel's
+    special_warp_floats): the row's signed sum channel, then the chain's
+    scratch (prefix and suffix partial convs, the ``sw`` combine outputs) or
+    the sum decision's two buffers, whichever is larger."""
+    qs, s_pre, s_mid = 2 * bsum + 1, b + bsum, (2 * sw - 1) * b
+    partials = sum(2 * _cap(c, sw, b, s_pre, s_mid) + 1 for c in range(sw))
+    return qs + max(2 * partials + sw * (2 * s_pre + 1), 2 * qs)
+
+
+def special_fused_smem_bytes(n_b, r, sw, b, bsum, warps):
+    """Dynamic shared memory of one K7 block (one frame) of ``warps`` warps:
+    v2c [R, SW, QB] and the B totals [NB, QB], then each warp's slice."""
+    qb = 2 * b + 1
+    return 4 * (r * sw * qb + n_b * qb + warps * special_warp_floats(sw, b, bsum))
+
+
+def special_fused_launch(n_b, r, sw, b, bsum, smem_block, smem_sm):
+    """K7's launch configuration for a code of ``n_b`` B-variables, ``r``
+    rows of ``sw`` B-slots and the alphabets ``b``, ``bsum`` on a device with
+    the shared-memory limits ``smem_block`` and ``smem_sm``
+    (:func:`~sca_ldpc_tpu_torch.ops.kernels.circulant_cuda.smem_limits`):
+    the most warps a block (of :data:`SPECIAL_WARPS`) whose block fits, and
+    the blocks an SM holds, by its shared memory with what CUDA reserves for
+    each block (the SM's shared memory less what one block may opt in to)
+    and by registers (:data:`SPECIAL_SM_WARPS`).  Each instance reaches the
+    registers' 32 warps an SM when its blocks fit, so the largest block that
+    fits holds the most warps.  Raises ValueError when not even one block of
+    the smallest fits."""
+    reserved = smem_sm - smem_block
+    for warps in SPECIAL_WARPS:
+        smem = special_fused_smem_bytes(n_b, r, sw, b, bsum, warps)
+        if smem <= smem_block:
+            return SpecialLaunch(warps, min(smem_sm // (smem + reserved), SPECIAL_SM_WARPS // warps), smem)
+    warps = SPECIAL_WARPS[-1]
+    raise ValueError(
+        f"qary_special_min_sum_fused_cuda: NB={n_b}, R={r}, SW={sw}, B={b}, BSUM={bsum} need "
+        f"{special_fused_smem_bytes(n_b, r, sw, b, bsum, warps)} B of shared memory per frame at {warps} warps; "
+        f"the bound is {smem_block} B (backend='chain' takes any size)")
+
+
+def special_fused_occupancy(n_b, r, sw, b, bsum, device="cuda"):
+    """K7's launch configuration on ``device`` (a dict of
+    :func:`special_fused_launch`'s fields), the library's own count of its
+    shared memory (``lib_smem_bytes``), and ``resident_blocks`` and
+    ``resident_warps`` per SM of its instance from the occupancy calculator.
+    Needs a CUDA device."""
+    device = torch.device(device)
+    cfg = special_fused_launch(n_b, r, sw, b, bsum, *smem_limits(device))
+    with torch.cuda.device(device):
+        blocks = _lib().qary_special_fused_occupancy(cfg.warps, cfg.smem_bytes)
+    if blocks < 0:
+        raise RuntimeError(f"qary_special_fused_occupancy failed: CUDA error {-blocks}")
+    lib_smem = _lib().qary_special_fused_smem_bytes(n_b, r, sw, b, bsum, cfg.warps)
+    return {**cfg._asdict(), "lib_smem_bytes": lib_smem, "resident_blocks": blocks,
+            "resident_warps": blocks * cfg.warps}
+
+
+def special_fused_ptxas():
+    """ptxas's ``-v`` report on K7's instances of the built library:
+    {warps: (registers, spill bytes stored and loaded)} a thread.  Builds
+    the library if needed (needs nvcc)."""
+    from ._build import build
+
+    return _ptxas_report(build("qary_min_sum"), r"qary_special_fused_kernelILi(\d+)EE", lambda m: int(m[1]))
 
 
 def chain_exclusive_plain(v2c, s_mid, s_out, extra=None):
@@ -101,11 +184,11 @@ def chain_exclusive_cuda(v2c, s_mid, s_out, extra=None):
         return chain_exclusive_plain(v2c, s_mid, s_out, extra)
 
     stream = _cuda_stream(device)
-    smem = _lib().qary_chain_smem_bytes(dc, q, s_mid, s_out, we)
-    if smem > MAX_SMEM_BYTES:
+    smem, smem_block = _lib().qary_chain_smem_bytes(dc, q, s_mid, s_out, we), smem_limits(device)[0]
+    if smem > smem_block:
         raise ValueError(
             f"chain_exclusive_cuda: DC={dc}, Q={q}, s_mid={s_mid}, s_out={s_out}, We={we} need "
-            f"{smem} B of shared memory per block of 8 checks; the bound is {MAX_SMEM_BYTES} B"
+            f"{smem} B of shared memory per block of 8 checks; the bound is {smem_block} B"
         )
     with torch.cuda.device(device):
         out = torch.empty((bt, r, dc, 2 * s_out + 1), dtype=torch.float32, device=device)
@@ -158,11 +241,11 @@ def qary_min_sum_fused_cuda(channel, chk_var, chk_sign, chk_mask, var_flat, b_ra
         return qary_min_sum_fused_plain(channel, chk_var, chk_sign, chk_mask, var_flat, b_range, max_iter)
 
     stream = _cuda_stream(device)
-    smem = fused_smem_bytes(n, r, dc, q)
-    if smem > MAX_SMEM_BYTES:
+    smem, smem_block = fused_smem_bytes(n, r, dc, q), smem_limits(device)[0]
+    if smem > smem_block:
         raise ValueError(
             f"qary_min_sum_fused_cuda: N={n}, R={r}, DC={dc}, Q={q} need {smem} B of shared memory "
-            f"per frame; the bound is {MAX_SMEM_BYTES} B (backend='chain' takes any size)"
+            f"per frame; the bound is {smem_block} B (backend='chain' takes any size)"
         )
     real = chk_mask != 0
     bad = (
@@ -203,7 +286,7 @@ def qary_special_min_sum_fused_plain(channel_llr, channel_sum_row, vsum_signed, 
 
 
 def qary_special_min_sum_fused_cuda(channel_llr, channel_sum_row, vsum_signed, bvar_idx, bvar_sign, bvar_mask,
-                                    var_flat, sum_sign, b, bsum, max_iter):
+                                    var_flat, sum_sign, b, bsum, max_iter, warps=None):
     """Whole two-alphabet decode of ``[H'|I]``, as the JAX package's
     ``qary_special_min_sum_fused``.
 
@@ -214,7 +297,9 @@ def qary_special_min_sum_fused_cuda(channel_llr, channel_sum_row, vsum_signed, b
     bvar_idx, bvar_sign, bvar_mask: [R, SW] int32 and var_flat: [NB, DV]
     int32, as :func:`~sca_ldpc_tpu_torch.ops.qary_special.special_index_arrays`
     gives them (bvar_mask 0/1); sum_sign: [R] int32.  Returns
-    ``(hard_b [Bt, NB], hard_sum_row [Bt, R])`` int32.
+    ``(hard_b [Bt, NB], hard_sum_row [Bt, R])`` int32.  ``warps`` (for
+    tests) forces one of :data:`SPECIAL_WARPS` in place of
+    :func:`special_fused_launch`'s choice.
     """
     device = channel_llr.device
     if channel_llr.ndim != 3 or channel_sum_row.ndim != 3 or bvar_idx.ndim != 2 or var_flat.ndim != 2:
@@ -241,12 +326,12 @@ def qary_special_min_sum_fused_cuda(channel_llr, channel_sum_row, vsum_signed, b
                                                 bvar_mask, var_flat, sum_sign, b, bsum, max_iter)
 
     stream = _cuda_stream(device)
-    smem = special_fused_smem_bytes(nb, r, sw, b, bsum)
-    if smem > MAX_SMEM_BYTES:
-        raise ValueError(
-            f"qary_special_min_sum_fused_cuda: NB={nb}, R={r}, SW={sw}, B={b}, BSUM={bsum} need {smem} B of "
-            f"shared memory per frame; the bound is {MAX_SMEM_BYTES} B (backend='chain' takes any size)"
-        )
+    if warps is None:
+        warps = special_fused_launch(nb, r, sw, b, bsum, *smem_limits(device)).warps
+    elif warps not in SPECIAL_WARPS:
+        raise ValueError(f"warps={warps} is not one of K7's instances {SPECIAL_WARPS}")
+    elif special_fused_smem_bytes(nb, r, sw, b, bsum, warps) > smem_limits(device)[0]:
+        raise ValueError(f"warps={warps}: a block does not fit the card's shared memory")
     real = bvar_mask != 0
     bad = (
         (real & ((bvar_idx < 0) | (bvar_idx >= nb))).any()
@@ -264,12 +349,14 @@ def qary_special_min_sum_fused_cuda(channel_llr, channel_sum_row, vsum_signed, b
             rc = _lib().qary_special_min_sum_fused(
                 channel_llr.data_ptr(), channel_sum_row.data_ptr(), vsum_signed.data_ptr(), bvar_idx.data_ptr(),
                 bvar_sign.data_ptr(), bvar_mask.data_ptr(), var_flat.data_ptr(), sum_sign.data_ptr(),
-                bt, nb, r, sw, dv, b, bsum, max_iter, hard_b.data_ptr(), hard_s.data_ptr(), stream,
+                bt, nb, r, sw, dv, b, bsum, max_iter, warps, hard_b.data_ptr(), hard_s.data_ptr(), stream,
             )
             if rc != 0:
                 raise RuntimeError(f"qary_special_min_sum_fused launch failed: CUDA error {rc}")
             qary_special_min_sum_fused_cuda.launches += 1
+            qary_special_min_sum_fused_cuda.instances.add(warps)
     return hard_b, hard_s
 
 
 qary_special_min_sum_fused_cuda.launches = 0
+qary_special_min_sum_fused_cuda.instances = set()  # the instances (warps a block) launched

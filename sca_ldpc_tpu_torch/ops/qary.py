@@ -180,9 +180,10 @@ class QaryDecoder:
         lay = self.layout
         if backend is None:
             def fits():
-                from .kernels.qary_cuda import MAX_SMEM_BYTES, fused_smem_bytes
+                from .kernels.circulant_cuda import smem_limits
+                from .kernels.qary_cuda import fused_smem_bytes
 
-                return fused_smem_bytes(lay.n, lay.r, lay.dc, self.q) <= MAX_SMEM_BYTES
+                return fused_smem_bytes(lay.n, lay.r, lay.dc, self.q) <= smem_limits(self.device)[0]
 
             backend = default_backend(self.device, self.early_exit, fits)
         if backend not in BACKENDS:

@@ -235,9 +235,14 @@ class QarySpecialDecoder:
             raise ValueError(f"BSUM ({bsum}) must equal SW ({self.sw}) * B ({b})")
         if backend is None:
             def fits():
-                from .kernels.qary_cuda import MAX_SMEM_BYTES, special_fused_smem_bytes
+                from .kernels.circulant_cuda import smem_limits
+                from .kernels.qary_cuda import special_fused_launch
 
-                return special_fused_smem_bytes(self.n_b, r, self.sw, self.b, self.bsum) <= MAX_SMEM_BYTES
+                try:
+                    special_fused_launch(self.n_b, r, self.sw, self.b, self.bsum, *smem_limits(self.device))
+                except ValueError:
+                    return False
+                return True
 
             backend = default_backend(self.device, self.early_exit, fits)
         if backend not in BACKENDS:

@@ -14,10 +14,17 @@ from sca_ldpc_tpu_torch.channels import probs_to_llr
 from sca_ldpc_tpu_torch.codes import make_qary_qc_parity_check_matrix
 from sca_ldpc_tpu_torch.models.kyber import gen_ldpc_matrix, simulate_kyber_attack
 from sca_ldpc_tpu_torch.ops import QarySpecialDecoder, minplus
+from sca_ldpc_tpu_torch.ops.kernels import qary_cuda
+from sca_ldpc_tpu_torch.ops.kernels.circulant_cuda import smem_limits
 from sca_ldpc_tpu_torch.ops.kernels.qary_cuda import (
+    SPECIAL_WARPS,
     chain_exclusive_cuda,
     qary_special_min_sum_fused_cuda,
     qary_special_min_sum_fused_plain,
+    special_fused_launch,
+    special_fused_occupancy,
+    special_fused_ptxas,
+    special_fused_smem_bytes,
 )
 from sca_ldpc_tpu_torch.ops.qary import _signed
 from sca_ldpc_tpu_torch.utils import make_random_state
@@ -70,14 +77,19 @@ def _inputs(H, b, bsum, frames, seed, device):
     return llr_b, llr_s, vsum, bvar_idx, bvar_sign, bvar_mask, var_flat, sum_sign
 
 
+# None: the instance special_fused_launch picks; else each instance (warps a block) forced
+WARPS = [None, *SPECIAL_WARPS]
+
+
 @pytest.mark.parametrize("code", ["irregular", "signed_identity", "block16"])
 @pytest.mark.parametrize("eta", [2, 3])
 @pytest.mark.parametrize("max_iter", [0, 1, 10])
-def test_kernel_decisions_equal_plain_on_small_codes(cuda, code, eta, max_iter):
+@pytest.mark.parametrize("warps", WARPS)
+def test_kernel_decisions_equal_plain_on_small_codes(cuda, code, eta, max_iter, warps):
     H, sw = _codes()[code]
     args = _inputs(H, eta, sw * eta, 37, 5, cuda)
     before = qary_special_min_sum_fused_cuda.launches
-    hb, hs = qary_special_min_sum_fused_cuda(*args, eta, sw * eta, max_iter)
+    hb, hs = qary_special_min_sum_fused_cuda(*args, eta, sw * eta, max_iter, warps=warps)
     pb, ps = qary_special_min_sum_fused_plain(*args, eta, sw * eta, max_iter)
     torch.cuda.synchronize()
     assert qary_special_min_sum_fused_cuda.launches == before + 1
@@ -87,15 +99,43 @@ def test_kernel_decisions_equal_plain_on_small_codes(cuda, code, eta, max_iter):
 
 
 @pytest.mark.parametrize("eta,frames", [(2, 256), (3, 64)])
-def test_kernel_decisions_equal_plain_at_kyber768(cuda, eta, frames):
+@pytest.mark.parametrize("warps", WARPS)
+def test_kernel_decisions_equal_plain_at_kyber768(cuda, eta, frames, warps):
     """DecoderN1280R512SW6 (NB = 768, R = 512, DV = 4) at eta = 2 and at the
     adaptive path's eta = 3 (QB = 7, QS = 37), 10 iterations."""
     H, sw = _codes()["kyber768"]
     args = _inputs(H, eta, sw * eta, frames, eta, cuda)
-    hb, hs = qary_special_min_sum_fused_cuda(*args, eta, sw * eta, 10)
+    hb, hs = qary_special_min_sum_fused_cuda(*args, eta, sw * eta, 10, warps=warps)
     pb, ps = qary_special_min_sum_fused_plain(*args, eta, sw * eta, 10)
     torch.cuda.synchronize()
     assert torch.equal(hb, pb) and torch.equal(hs, ps)
+
+
+@pytest.mark.parametrize("code", ["irregular", "block16", "kyber768"])
+@pytest.mark.parametrize("eta", [2, 3])
+def test_launch_configuration_on_the_card(cuda, code, eta):
+    """The chooser's shared-memory count equals the library's for every
+    instance; the occupancy calculator holds the chosen instance's blocks
+    resident on an SM; ptxas reports every instance."""
+    H, sw = _codes()[code]
+    r, n_b = H.shape[0], H.shape[1] - H.shape[0]
+    for warps in SPECIAL_WARPS:
+        assert qary_cuda._lib().qary_special_fused_smem_bytes(n_b, r, sw, eta, sw * eta, warps) == special_fused_smem_bytes(
+            n_b, r, sw, eta, sw * eta, warps)
+    occ = special_fused_occupancy(n_b, r, sw, eta, sw * eta, cuda)
+    assert occ["lib_smem_bytes"] == occ["smem_bytes"]
+    assert (occ["warps"], occ["blocks_per_sm"]) == special_fused_launch(n_b, r, sw, eta, sw * eta, *smem_limits(cuda))[:2]
+    assert occ["resident_blocks"] >= occ["blocks_per_sm"]
+    assert set(special_fused_ptxas()) == set(SPECIAL_WARPS)
+
+
+def test_forced_launch_is_checked(cuda):
+    H, sw = _codes()["block16"]
+    args = _inputs(H, 2, 12, 3, 1, cuda)
+    before = qary_special_min_sum_fused_cuda.launches
+    with pytest.raises(ValueError, match="instances"):
+        qary_special_min_sum_fused_cuda(*args, 2, 12, 5, warps=12)
+    assert qary_special_min_sum_fused_cuda.launches == before
 
 
 def test_decoder_backends_on_the_card(cuda):
@@ -118,9 +158,9 @@ def test_decoder_backends_on_the_card(cuda):
 
 
 def test_default_backend_takes_chain_when_a_frame_does_not_fit(cuda):
-    """At eta = 3 and check_blocks = 5 a frame needs 245,248 B of shared
-    memory: the default backend is "chain" and decodes as "plain" does; an
-    explicit "fused" raises."""
+    """At eta = 3 and check_blocks = 5 a frame needs 252,128 B of shared
+    memory even in blocks of 8 warps: the default backend is "chain" and
+    decodes as "plain" does; an explicit "fused" raises."""
     H = gen_ldpc_matrix(6, 0, check_blocks=5)
     dec = QarySpecialDecoder(H, 3, 18, 3, device=cuda)
     assert dec.backend == "chain"
