@@ -38,15 +38,22 @@ Phases (each prints one line; any failure exits non-zero):
      medium decoder's shapes [512, 150, 7, 15] and with an extra operand at
      Kyber-like shapes [512, 512, 6, 5] + [512, 512, 25];
   6. K6 (qary_min_sum_fused_cuda) against the plain decode on the medium
-     decoder: 512 frames of Dirichlet channels, 10 iterations, hard
-     decisions equal on every frame;
+     decoder (512 frames of Dirichlet channels, 10 iterations) and on its
+     code at B = 1 (Q = 3, DecoderN450R150V3C7B1; 512 frames, 5
+     iterations), hard decisions equal on every frame, each on the instance
+     that fused_launch picks from the card's limits; before it, ptxas's
+     registers and spills of every K6 instance (fails above 64 registers or
+     on a spill), and for each Q the warps a block and blocks an SM picked
+     and the blocks the occupancy calculator holds resident (fails if fewer
+     than picked);
   7. path 2 through the public API, with the launch counts reset before and
      read after: simulate_frame_error_rate_qary on DecoderN450R150V3C7B1
      (seed 1, rate 0.005, 5 iterations, 4 x 4096 frames, backend "fused",
      the same triple as backend "plain" on the same device-sampled frames),
      and QaryDecoder.min_sum_llr on the medium decoder at batch 4096 for
      the backends fused, chain and plain (frames/s best of 3 after a
-     warm-up; every frame decodes to the all-zero word);
+     warm-up; every frame decodes to the all-zero word); every K6 instance
+     these launch was held against plain in phase 6;
   8. K7 (qary_special_min_sum_fused_cuda) against the plain decode on
      DecoderN1280R512SW6: 512 frames of Dirichlet channels, 10 iterations,
      B and sum decisions equal on every frame, at eta = 2 and at the
@@ -390,6 +397,8 @@ def _qary_phases(dev, tag, lib_path):
     from sca_ldpc_tpu_torch.ops.kernels.qary_cuda import (
         chain_exclusive_cuda,
         chain_exclusive_plain,
+        fused_occupancy,
+        fused_ptxas,
         qary_min_sum_fused_cuda,
         qary_min_sum_fused_plain,
     )
@@ -428,30 +437,48 @@ def _qary_phases(dev, tag, lib_path):
     if chain_exclusive_cuda.launches <= 0:
         raise SystemExit("K5 never launched")
 
-    # ---- phase 6: K6 against the plain decode on the medium decoder
-    dec = QaryDecoder(H, QB, QITER, backend="fused", device=dev)
-    probs = rng.dirichlet(np.ones(q), size=(CMP_FRAMES, H.shape[1])).astype(np.float32)
-    llr = minplus.clip_inf(probs_to_llr(torch.from_numpy(probs).to(dev))).contiguous()
-    k6_args = (llr, *dec._args, QB, QITER)
-    hard_k = qary_min_sum_fused_cuda(*k6_args)
-    hard_p = qary_min_sum_fused_plain(*k6_args)
-    torch.cuda.synchronize()
-    differ = int((hard_k != hard_p).any(dim=-1).sum())
-    k6_err = int((hard_k - hard_p).abs().max())
-    k6_ms = _ms(lambda: qary_min_sum_fused_cuda(*k6_args))
-    k6_plain_ms = _ms(lambda: qary_min_sum_fused_plain(*k6_args))
-    dc = dec.layout.dc
-    k6_bound = chain_bound_ms(CMP_FRAMES * H.shape[0] * QITER, dc, QB, (dc - 1) * QB, QB, 0,
-                              _nbytes(llr, *dec._args, hard_k))
-    print(f"phase 6 K6 medium decoder, {CMP_FRAMES} Dirichlet frames, {QITER} iterations: hard decisions "
-          f"differ on {differ} frames; kernel {k6_ms:.3f} ms, plain {k6_plain_ms:.3f} ms {tag}")
-    if differ:
-        raise SystemExit("K6: hard decisions differ from the plain version")
+    # ---- phase 6: K6 against the plain decode, medium decoder and Q = 3
+    ptxas = fused_ptxas(6)
+    print("phase 6 K6 instances (warps a block): " + " | ".join(
+        f"{w} {regs} regs/{spill} B spill" for w, (regs, spill) in ptxas.items()))
+    if any(regs > 64 or spill for regs, spill in ptxas.values()):
+        raise SystemExit(f"K6: an instance above 64 registers or with spills: {ptxas}")
+    k6, held = {}, set()
+    for b, iters in ((QB, QITER), (FER_B, FER_ITER)):
+        qb = 2 * b + 1
+        dec = QaryDecoder(H, b, iters, backend="fused", device=dev)
+        probs = rng.dirichlet(np.ones(qb), size=(CMP_FRAMES, H.shape[1])).astype(np.float32)
+        llr = minplus.clip_inf(probs_to_llr(torch.from_numpy(probs).to(dev))).contiguous()
+        # as the decoder launches it: its adjacency was checked when it was built
+        k6_args = (llr, *dec._args, b, iters)
+        lay = dec.layout
+        occ = fused_occupancy(lay.n, lay.r, lay.dc, qb, dev)
+        held.add(occ["warps"])
+        hard_k = qary_min_sum_fused_cuda(*k6_args, check_adjacency=False)
+        hard_p = qary_min_sum_fused_plain(*k6_args)
+        torch.cuda.synchronize()
+        differ = int((hard_k != hard_p).any(dim=-1).sum())
+        err = int((hard_k - hard_p).abs().max())
+        ms = _ms(lambda: qary_min_sum_fused_cuda(*k6_args, check_adjacency=False))
+        plain_ms = _ms(lambda: qary_min_sum_fused_plain(*k6_args))
+        bound = chain_bound_ms(CMP_FRAMES * lay.r * iters, lay.dc, b, (lay.dc - 1) * b, b, 0,
+                               _nbytes(llr, *dec._args, hard_k))
+        k6[b] = (err, ms, plain_ms, bound)
+        print(f"phase 6 K6 {'medium decoder' if b == QB else decoder_name_for(H, b)} (Q {qb}): {occ['warps']} warps "
+              f"a block, {occ['blocks_per_sm']} blocks an SM picked, {occ['resident_blocks']} resident "
+              f"({occ['resident_warps']} warps), {occ['smem_bytes']} B shared memory a block; {CMP_FRAMES} Dirichlet "
+              f"frames, {iters} iterations: hard decisions differ on {differ} frames; kernel {ms:.3f} ms, plain "
+              f"{plain_ms:.3f} ms; bound {bound[0]:.4f} ms ({bound[1]}), kernel at {100 * bound[0] / ms:.1f}% {tag}")
+        if differ:
+            raise SystemExit(f"K6 Q {qb}: hard decisions differ from the plain version")
+        if occ["resident_blocks"] < occ["blocks_per_sm"] or occ["lib_smem_bytes"] != occ["smem_bytes"]:
+            raise SystemExit(f"K6 Q {qb}: the launch configuration is not what the card holds: {occ}")
 
     # ---- phase 7: path 2 through the public API
     torch.cuda.synchronize()
     chain_exclusive_cuda.launches = 0
     qary_min_sum_fused_cuda.launches = 0
+    qary_min_sum_fused_cuda.instances = set()
     H1, rng1 = _medium_code()
     name = decoder_name_for(H1, FER_B)
     runs = FER_BATCHES * BATCH
@@ -487,9 +514,13 @@ def _qary_phases(dev, tag, lib_path):
     torch.cuda.synchronize()
     launches = {"chain_exclusive_cuda": chain_exclusive_cuda.launches,
                 "qary_min_sum_fused_cuda": qary_min_sum_fused_cuda.launches}
-    print(f"phase 7 launches {launches}")
+    launched = qary_min_sum_fused_cuda.instances
+    print(f"phase 7 launches {launches}; K6 instances launched {sorted(launched)}, held against plain in phase 6 "
+          f"{sorted(held)}")
     if min(launches.values()) <= 0:
         raise SystemExit(f"a kernel of the q-ary path was not launched: {launches}")
+    if not launched <= held:
+        raise SystemExit(f"K6 instances {sorted(launched - held)} ran on the q-ary path unchecked against plain")
 
     src = "sca_ldpc_tpu_torch/csrc/qary_min_sum.cu"
     k5_bound = chain_bound_ms(CMP_FRAMES * 150, dc, QB, (dc - 1) * QB, QB, 0, k5["medium"][3])
@@ -498,7 +529,7 @@ def _qary_phases(dev, tag, lib_path):
                launches["chain_exclusive_cuda"], max(k5["medium"][0], k5["extra"][0]), k5["medium"][1],
                k5["medium"][2], k5_bound),
         _entry("qary_min_sum_fused_cuda", src, "sca_ldpc_tpu/ops/kernels/qary_pallas.py:264",
-               launches["qary_min_sum_fused_cuda"], k6_err, k6_ms, k6_plain_ms, k6_bound),
+               launches["qary_min_sum_fused_cuda"], max(k6[QB][0], k6[FER_B][0]), k6[QB][1], k6[QB][2], k6[QB][3]),
     ]
 
 
@@ -515,10 +546,10 @@ def _kyber_phases(dev, tag):
     from sca_ldpc_tpu_torch.ops.kernels.bounds import chain_bound_ms
     from sca_ldpc_tpu_torch.ops.kernels.qary_cuda import (
         chain_exclusive_cuda,
+        fused_ptxas,
         qary_special_min_sum_fused_cuda,
         qary_special_min_sum_fused_plain,
         special_fused_occupancy,
-        special_fused_ptxas,
     )
     from sca_ldpc_tpu_torch.utils import make_random_state
 
@@ -528,7 +559,7 @@ def _kyber_phases(dev, tag):
 
     # ---- phase 8: K7 against the plain decode
     print("phase 8 K7 instances (warps a block): " + " | ".join(
-        f"{w} {regs} regs/{spill} B spill" for w, (regs, spill) in special_fused_ptxas().items()))
+        f"{w} {regs} regs/{spill} B spill" for w, (regs, spill) in fused_ptxas(7).items()))
     k7, held = {}, set()
     for eta in (2, 3):
         bsum = KY_SW * eta

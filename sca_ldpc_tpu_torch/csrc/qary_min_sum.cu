@@ -35,19 +35,43 @@
 // scratch does) and tot [N, Q] stay in dynamic shared memory (90 KB at the
 // medium decoder), so device memory sees only the channel and the decisions.
 // Per iteration, with __syncthreads() between the sweeps:
-//   check sweep     one warp per check: the K5 chain, written in place and
-//                   reversed as c2v = min(ext[-d], BIG);
+//   check sweep     one warp per check (fused_check): the K5 chain without
+//                   the extra operand, written in place and reversed as
+//                   c2v = min(ext[-d], BIG);
 //   variable sweep  over (variable, symbol): tot = channel + sum of the
 //                   unsigned c2v, gathered through var_flat;
 //   edge sweep      one thread per edge: v2c = signed(tot[var]) - c2v, minus
 //                   its own minimum, min BIG; pad slots the delta identity.
 // The TPU kernel's one-hot matmuls are index gathers here, GF sign reversal
-// and pad masking are selects.  Bound on the H100: instruction throughput —
-// about 1.0e6 add+min pairs per frame-iteration in the check sweep, 4.2e10
-// for a 4096-frame, 10-iteration decode, about 2.5 ms at 132 SMs x 128 lanes
-// x 1.98 GHz; the block's 101 KB of shared memory allow 2 blocks per SM.
-// Measured on an H100 80GB HBM3 at 700 W: 44 ms for 4096 frames and
-// 10 iterations, 4.3 ms an iteration of which the check sweep is about 93%.
+// and pad masking are selects.  Bound on the H100: instruction throughput,
+// the check sweep's add+min pairs whose indices are in range (5,787 a check
+// at the medium decoder, 8.7e5 a frame-iteration); each term is two
+// shared-memory loads around its add and min.  Three things answer it:
+//   - Resident warps.  The frame's state, not the warps' scratch, fills
+//     shared memory, so a block runs as many warps as the registers allow
+//     (32 at 64 a thread) when it fits: an instance for 32, 16 and 8 warps a
+//     block, and the host's fused_launch() takes the one whose blocks hold
+//     the most warps an SM, the smallest of those that tie (the form before
+//     ran 8 warps a block, 16 an SM at the medium decoder; now one block of
+//     32 there, four of 8 at Q = 3).  A 4-warp instance, taken only when no
+//     larger block fits, keeps the frames of DC >= 6 that outgrew 8 warps
+//     with the guards below.
+//   - Idle lanes.  Step t of the prefix chain and step t of the suffix chain
+//     run in one pass, a lane on each (chain, output), the chains on
+//     alternate lanes and their buffers 16 banks apart; the combine outputs
+//     of all DC slots run in passes over (slot, output) lanes, the slots in
+//     order of falling term window (1, 15, 29, 43, 29, 15, 1 terms at Q = 15)
+//     so that a pass's lanes walk alike windows: 254 serial term steps a
+//     check for 345 at Q = 15, 23 for 57 at Q = 3.
+//   - No bounds test.  Each chain's partials sit between kBig guards of 2B
+//     floats, so a term whose index falls outside its operand reads the kBig
+//     that conv_warp's test stands in: the same term, without the test.  The
+//     partials' offsets and the slot order come from a table made once a
+//     block, not from partial_offset loops in every row.
+// Each output is still one min over exactly minplus.conv's terms.  Measured
+// on an H100 80GB HBM3 at 700 W (tools/qary_forms.py, against the 8-warp
+// form before; batch 4096): medium decoder, 10 iterations, 43.3 -> 19.8 ms;
+// Q = 3, 5 iterations, 8.3 -> 2.4 ms.  The guards alone are worth 21%.
 //
 // K7 design: K6's form for the two-alphabet code [H'|I] (Kyber).  One block
 // per frame runs every iteration; v2c/c2v [R, SW, QB] and tot_b [NB, QB] of
@@ -212,10 +236,104 @@ long long chain_warp_floats(int d, int q, int s_mid, int s_out, int we) {
   return f;
 }
 
-long long fused_floats(int n, int r, int dc, int q) {
+// K6's caps: cap_of(count, d, b, b, (d - 1) b), the stored support of a
+// partial conv of `count` operands when the outputs are +-b.
+__host__ __device__ inline int fused_cap(int count, int d, int b) {
+  return (count < d - count ? count : d - count) * b;
+}
+
+// K6 keeps each of a warp's two chains (prefix, suffix) in one buffer, every
+// partial between kBig guards of 2b floats: offset of the partial of `count`
+// operands (count = d: the buffer's floats).  A term whose b-index falls
+// outside its partial reads a guard, the kBig that conv_warp's bounds test
+// stands in, so the term set and each term's bits are minplus.conv's.
+__host__ __device__ inline int fused_partial_offset(int count, int d, int b) {
+  int f = 2 * b;
+  for (int c = 0; c < count; ++c) f += 2 * fused_cap(c, d, b) + 1 + 2 * b;
+  return f;
+}
+
+// Term window of slot j's combine: 2 min(cap(j), cap(d-1-j)) + 1.
+__host__ __device__ inline int fused_window(int j, int d, int b) {
+  const int cj = fused_cap(j, d, b);
+  const int cs = fused_cap(d - 1 - j, d, b);
+  return 2 * (cj < cs ? cj : cs) + 1;
+}
+
+// Floats from a warp's prefix chain buffer to its suffix chain buffer: the
+// buffer rounded up to 16 modulo 32, so that a prefix lane and a suffix lane
+// on the same output read banks 16 apart.
+__host__ __device__ inline int fused_suffix_offset(int d, int b) {
+  const int pf = fused_partial_offset(d, d, b);
+  return pf + (48 - pf % 32) % 32;
+}
+
+// A K6 block: v2c [R, DC, Q], tot [N, Q], each warp's two chain buffers,
+// then the block's table (DC + 1 partial offsets, the DC slots in combine
+// order) as ints.
+long long fused_floats(int n, int r, int dc, int q, int warps) {
   const int b_sup = (q - 1) / 2;
-  return static_cast<long long>(r) * dc * q + static_cast<long long>(n) * q +
-         2LL * kWarps * partial_offset(dc, dc, b_sup, b_sup, (dc - 1) * b_sup);
+  const long long warp_floats = fused_suffix_offset(dc, b_sup) + fused_partial_offset(dc, dc, b_sup);
+  return static_cast<long long>(r) * dc * q + static_cast<long long>(n) * q + warps * warp_floats + 2 * dc + 1;
+}
+
+// min over i < wa of a[i] + bk[-i], then min with BIG: one output of a
+// min-plus conv whose b-operand is padded (every index in range).
+__device__ __forceinline__ float min_terms(const float* a, int wa, const float* bk) {
+  float acc = INFINITY;
+#pragma unroll 4
+  for (int i = 0; i < wa; ++i) acc = fminf(acc, a[i] + bk[-i]);
+  return fminf(acc, kBig);
+}
+
+// K6's check update of one row, by one warp: chain_check without the extra
+// operand, with the same term sets, written in place of m [d, q] and
+// reversed as c2v.  pre, suf: the warp's chain buffers (fused_partial_offset
+// layout, guards kBig, the partial of 0 operands [0]); off: the partials'
+// offsets; order: the slots by falling combine window.
+__device__ void fused_check(float* m, int d, int b, const int* off, const int* order, float* pre, float* suf,
+                            int lane) {
+  const int q = 2 * b + 1;
+  // Step t of the prefix chain (operand t onto the partial of t operands) and
+  // of the suffix chain (operand d-1-t onto the last t) have the same shapes:
+  // both in one pass, a lane on each (chain, output), the chains on
+  // alternate lanes (with the buffers 16 banks apart, no two lanes of a pass
+  // read one bank).  As conv_warp: step 0
+  // walks the partial [0] (the smaller declared support, so the operands
+  // swap) over the operand; a later step walks the operand's q terms over the
+  // partial, at offset b + ct - cn.
+  for (int t = 0; t < d - 1; ++t) {
+    const int ct = fused_cap(t, d, b);
+    const int cn = fused_cap(t + 1, d, b);
+    const int w = 2 * cn + 1;
+    for (int p = lane; p < 2 * w; p += 32) {
+      const bool s = p & 1;
+      const int k = p >> 1;
+      float* part = s ? suf : pre;
+      const float* x = m + (s ? d - 1 - t : t) * q;
+      part[off[t + 1] + k] = t ? min_terms(x, q, part + off[t] + b + ct - cn + k)
+                               : min_terms(part + off[0], 1, x + b - cn + k);
+    }
+    __syncwarp();
+  }
+  // Every slot's combine, conv(prefix j, suffix of d-1-j) to +-b, in passes
+  // over (slot, output) lanes, the slots by falling term window so that a
+  // pass's lanes walk alike windows; conv_warp's swap walks the partial of
+  // the smaller cap, picked by pointer so that a pass mixing swapped and
+  // unswapped slots runs one loop.  Written reversed in place: the chains no
+  // longer read m.
+  for (int p = lane; p < d * q; p += 32) {
+    const int rank = p / q;
+    const int k = p - rank * q;
+    const int j = order[rank];
+    const int cj = fused_cap(j, d, b);
+    const int cs = fused_cap(d - 1 - j, d, b);
+    const bool swap = cs < cj;
+    const float* a = swap ? suf + off[d - 1 - j] : pre + off[j];
+    const float* bb = swap ? pre + off[j] : suf + off[d - 1 - j];
+    m[j * q + q - 1 - k] = min_terms(a, 2 * (swap ? cs : cj) + 1, bb + cj + cs - b + k);
+  }
+  __syncwarp();
 }
 
 // K5: chain_exclusive over n_checks = Bt*R checks.  v2c [n_checks, d, q];
@@ -244,23 +362,42 @@ __global__ void __launch_bounds__(kThreads)
               w_out, false, lane);
 }
 
-// K6: the whole decode of one frame per block.
-__global__ void __launch_bounds__(kThreads)
+// K6: the whole decode of one frame per block of kW warps, at most 64
+// registers a thread (32 warps an SM as far as registers go).
+template <int kW>
+__global__ void __launch_bounds__(kW * 32, 32 / kW)
     qary_fused_kernel(const float* __restrict__ channel, const int* __restrict__ chk_var,
                       const int* __restrict__ chk_sign, const int* __restrict__ chk_mask,
                       const int* __restrict__ var_flat, int n, int r, int dc, int dv, int q, int max_iter,
                       int* __restrict__ hard) {
+  constexpr int kThreads = kW * 32;
   extern __shared__ float smem[];
   const int b_sup = (q - 1) / 2;
-  const int s_mid = (dc - 1) * b_sup;
   const int edges = r * dc;
-  const int pf = partial_offset(dc, dc, b_sup, b_sup, s_mid);
+  const int pf = fused_partial_offset(dc, dc, b_sup);
   float* v2c = smem;          // [R*DC, Q]; holds c2v between the check and edge sweeps
   float* tot = v2c + edges * q;  // [N, Q]
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  float* scratch = tot + n * q + warp * 2 * pf;
+  const int ps = fused_suffix_offset(dc, b_sup);
+  float* pre = tot + n * q + warp * (ps + pf);  // the warp's prefix chain, then its suffix chain
+  float* suf = pre + ps;
+  int* off = reinterpret_cast<int*>(tot + n * q + kW * (ps + pf));  // [DC + 1] partial offsets
+  int* order = off + dc + 1;                                       // [DC] slots by falling combine window
   const float* ch = channel + static_cast<size_t>(blockIdx.x) * n * q;
+
+  // The block's table, and each warp's guards and partials of 0 operands.
+  for (int c = threadIdx.x; c <= dc; c += kThreads) off[c] = fused_partial_offset(c, dc, b_sup);
+  for (int j = threadIdx.x; j < dc; j += kThreads) {
+    const int wj = fused_window(j, dc, b_sup);
+    int rank = 0;
+    for (int x = 0; x < dc; ++x) {
+      const int wx = fused_window(x, dc, b_sup);
+      rank += wx > wj || (wx == wj && x < j);
+    }
+    order[rank] = j;
+  }
+  for (int t = lane; t < ps + pf; t += 32) pre[t] = (t == 2 * b_sup || t == ps + 2 * b_sup) ? 0.0f : kBig;
 
   // Initial v2c: the signed channel on each edge, the delta identity on pads.
   for (int idx = threadIdx.x; idx < edges * q; idx += kThreads) {
@@ -274,10 +411,7 @@ __global__ void __launch_bounds__(kThreads)
 
   for (int it = 0; it < max_iter; ++it) {
     // ---- check sweep: c2v in place of v2c
-    for (int i = warp; i < r; i += kWarps) {
-      float* m = v2c + i * dc * q;
-      chain_check(m, dc, q, s_mid, b_sup, nullptr, 0, scratch, m, q, true, lane);
-    }
+    for (int i = warp; i < r; i += kW) fused_check(v2c + i * dc * q, dc, b_sup, off, order, pre, suf, lane);
     __syncthreads();
 
     // ---- variable sweep: tot = channel + ((u_0 + u_1) + ...), pads add 0
@@ -575,10 +709,29 @@ extern "C" long long qary_chain_smem_bytes(int d, int q, int s_mid, int s_out, i
   return kWarps * chain_warp_floats(d, q, s_mid, s_out, we) * static_cast<long long>(sizeof(float));
 }
 
-// Dynamic shared memory of one K6 block (one frame).
-extern "C" long long qary_fused_smem_bytes(int n, int r, int dc, int q) {
-  return fused_floats(n, r, dc, q) * static_cast<long long>(sizeof(float));
+// Dynamic shared memory of one K6 block (one frame) of `warps` warps.
+extern "C" long long qary_fused_smem_bytes(int n, int r, int dc, int q, int warps) {
+  return fused_floats(n, r, dc, q, warps) * static_cast<long long>(sizeof(float));
 }
+
+// K6's instances: 32, 16, 8 or 4 warps a block; the host's fused_launch()
+// picks one from the card's shared-memory limits.
+namespace {
+
+using FusedKernel = void (*)(const float*, const int*, const int*, const int*, const int*, int, int, int, int, int,
+                             int, int*);
+
+FusedKernel fused_instance(int warps) {
+  switch (warps) {
+    case 32: return qary_fused_kernel<32>;
+    case 16: return qary_fused_kernel<16>;
+    case 8: return qary_fused_kernel<8>;
+    case 4: return qary_fused_kernel<4>;
+    default: return nullptr;
+  }
+}
+
+}  // namespace
 
 // K5 (replaces chain_exclusive_pallas).  v2c [n_checks, d, q] f32, extra
 // [n_checks, we] f32 or nullptr (we = 0), out [n_checks, d, 2 s_out + 1] f32.
@@ -607,20 +760,20 @@ extern "C" int qary_chain_exclusive(const float* v2c, const float* extra, float*
 // K6 (replaces qary_min_sum_fused).  channel [batch, n, q] f32 finite
 // min-sum LLRs; chk_var/chk_sign/chk_mask [r, dc] int32 and var_flat [n, dv]
 // int32 from CodeLayout (pads: chk_mask 0, var_flat r*dc); hard [batch, n]
-// int32 in [-B..B].  Returns a cudaError_t.
+// int32 in [-B..B]; warps a block 32, 16, 8 or 4.  Returns a cudaError_t.
 extern "C" int qary_min_sum_fused(const float* channel, const int* chk_var, const int* chk_sign, const int* chk_mask,
                                   const int* var_flat, int batch, int n, int r, int dc, int dv, int q, int max_iter,
-                                  int* hard, void* stream) {
-  if (batch < 0 || n < 1 || r < 1 || dc < 1 || dv < 1 || q < 1 || q % 2 == 0 || max_iter < 0) {
+                                  int warps, int* hard, void* stream) {
+  const FusedKernel kernel = fused_instance(warps);
+  if (batch < 0 || n < 1 || r < 1 || dc < 1 || dv < 1 || q < 1 || q % 2 == 0 || max_iter < 0 || kernel == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const long long smem = qary_fused_smem_bytes(n, r, dc, q);
+  const long long smem = qary_fused_smem_bytes(n, r, dc, q, warps);
   if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
   if (batch == 0) return 0;
-  cudaError_t err = cudaFuncSetAttribute(qary_fused_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  qary_fused_kernel<<<batch, kThreads, static_cast<size_t>(smem), static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<batch, warps * 32, static_cast<size_t>(smem), static_cast<cudaStream_t>(stream)>>>(
       channel, chk_var, chk_sign, chk_mask, var_flat, n, r, dc, dv, q, max_iter, hard);
   return static_cast<int>(cudaGetLastError());
 }
@@ -648,15 +801,17 @@ extern "C" long long qary_special_fused_smem_bytes(int nb, int r, int sw, int b,
   return special_fused_floats(nb, r, sw, b, bsum, warps) * static_cast<long long>(sizeof(float));
 }
 
-// Blocks of K7's `warps` instance resident on one SM at `smem` bytes of
-// dynamic shared memory, from the occupancy calculator; a negative
-// cudaError_t on failure.
-extern "C" int qary_special_fused_occupancy(int warps, int smem) {
-  const SpecialKernel kernel = special_instance(warps);
-  if (kernel == nullptr || smem < 0 || smem > kMaxSmem) return -static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+// Blocks resident on one SM of the `warps` instance of K6 (kernel 6) or K7
+// (kernel 7) at `smem` bytes of dynamic shared memory, from the occupancy
+// calculator; a negative cudaError_t on failure.
+extern "C" int qary_fused_occupancy(int kernel, int warps, int smem) {
+  const void* fn = kernel == 6   ? reinterpret_cast<const void*>(fused_instance(warps))
+                   : kernel == 7 ? reinterpret_cast<const void*>(special_instance(warps))
+                                 : nullptr;
+  if (fn == nullptr || smem < 0 || smem > kMaxSmem) return -static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   int n = 0;
-  if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, warps * 32, smem);
+  if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, fn, warps * 32, smem);
   return err == cudaSuccess ? n : -static_cast<int>(err);
 }
 

@@ -11,9 +11,9 @@ peaks at the full 700 W power limit.
   (check, plane) and iteration, so 4 transcendentals a message, on the
   special function units (SFU);
 - K5–K7 (q-ary min-sum): the add+min pairs of the min-plus chain
-  (``minplus.chain_exclusive``), 2 FP32 instructions a pair (an add and a
-  min; the 67 TFLOP/s peak counts an FMA as 2 operations, which this work
-  cannot use).
+  (``minplus.chain_exclusive``) whose operands' indices are in range, 2 FP32
+  instructions a pair (an add and a min; the 67 TFLOP/s peak counts an FMA
+  as 2 operations, which this work cannot use).
 """
 
 HBM_BYTES_S = 3.35e12  # HBM3, bytes a second
@@ -42,8 +42,12 @@ def circulant_bound_ms(iterations, w, n, nbytes, with_identity=True):
 
 def chain_pairs(d, b_sup, s_mid, s_out=None, se=0):
     """Add+min pairs of one ``chain_exclusive`` over ``d`` operands of
-    support ``b_sup`` (an extra operand of support ``se`` if not 0): the
-    loop counts of its prefix, suffix, combine and extra convolutions."""
+    support ``b_sup`` (an extra operand of support ``se`` if not 0): of the
+    loop passes of its prefix, suffix, combine and extra convolutions, those
+    whose b-index falls inside b's support.  A pass outside it adds BIG (a
+    kernel reads it from a BIG guard or skips it) and changes no output: every
+    output has an in-range term, and a finite term below 3.4e7 plus BIG
+    rounds to BIG."""
     s_out = s_mid if s_out is None else s_out
     s_pre = s_out + se
 
@@ -51,9 +55,14 @@ def chain_pairs(d, b_sup, s_mid, s_out=None, se=0):
         return min(count * b_sup, s_pre + (d - 1 - count) * b_sup, s_mid)
 
     def conv(sa, sb, out, ha=None, hb=None):
+        # minplus.conv's loop: i over a's declared window, the swap when b's is
+        # narrower, out[k] from b[off - i + k]; count the k whose index is in b
         ha = sa if ha is None else min(ha, sa)
         hb = sb if hb is None else min(hb, sb)
-        return (2 * min(ha, hb) + 1) * (2 * out + 1)
+        if hb < ha:
+            sa, sb, ha, hb = sb, sa, hb, ha
+        off = sa + sb - out
+        return sum(max(0, min(2 * out, 2 * sb + i - off) - max(0, i - off) + 1) for i in range(sa - ha, sa + ha + 1))
 
     pairs, prefix, suffix = 0, [0], [0]
     for j in range(d - 1):

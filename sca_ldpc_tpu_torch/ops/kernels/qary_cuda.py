@@ -37,6 +37,13 @@ from .circulant_cuda import _check, _cuda_stream, _ptxas_report, smem_limits
 _F32 = (torch.float32,)
 _I32 = (torch.int32,)
 
+# K6's instances, warps a block (one frame), built as K7's: at most 64
+# registers a thread, so 32 warps an SM as far as registers go.  The 4-warp
+# block, taken only when no larger one fits, keeps every frame of DC >= 6
+# that the form before took (8 warps, no guards) in one block.
+FUSED_WARPS = (32, 16, 8, 4)
+FUSED_SM_WARPS = 32
+
 # K7's instances, warps a block (one frame): each is built with
 # __launch_bounds__(32 * warps, 32 / warps), at most 64 registers a thread,
 # so 32 warps an SM as far as registers go.
@@ -44,8 +51,8 @@ SPECIAL_WARPS = (32, 16, 8)
 SPECIAL_SM_WARPS = 32
 
 
-class SpecialLaunch(NamedTuple):
-    """Launch configuration of K7 for one code and alphabet."""
+class FusedLaunch(NamedTuple):
+    """Launch configuration of K6 or K7 for one code and alphabet."""
 
     warps: int  # warps a block (one frame)
     blocks_per_sm: int  # blocks resident on one SM by design
@@ -60,24 +67,138 @@ def _lib():
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.qary_chain_exclusive.argtypes = [p, p, p, ll, i, i, i, i, i, p]
     lib.qary_chain_exclusive.restype = i
-    lib.qary_min_sum_fused.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, p, p]
+    lib.qary_min_sum_fused.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i, p, p]
     lib.qary_min_sum_fused.restype = i
     lib.qary_chain_smem_bytes.argtypes = [i, i, i, i, i]
     lib.qary_chain_smem_bytes.restype = ll
-    lib.qary_fused_smem_bytes.argtypes = [i, i, i, i]
+    lib.qary_fused_smem_bytes.argtypes = [i, i, i, i, i]
     lib.qary_fused_smem_bytes.restype = ll
+    lib.qary_fused_occupancy.argtypes = [i, i, i]
+    lib.qary_fused_occupancy.restype = i
     lib.qary_special_min_sum_fused.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, p, p, p]
     lib.qary_special_min_sum_fused.restype = i
     lib.qary_special_fused_smem_bytes.argtypes = [i, i, i, i, i, i]
     lib.qary_special_fused_smem_bytes.restype = ll
-    lib.qary_special_fused_occupancy.argtypes = [i, i]
-    lib.qary_special_fused_occupancy.restype = i
     return lib
 
 
-def fused_smem_bytes(n, r, dc, q):
-    """Dynamic shared memory one K6 frame needs, in bytes (from the library)."""
-    return _lib().qary_fused_smem_bytes(n, r, dc, q)
+def fused_cap(count, d, b):
+    """Stored support of K6's partial conv of ``count`` operands (the
+    kernel's fused_cap)."""
+    return min(count, d - count) * b
+
+
+def fused_partial_offset(count, d, b):
+    """Offset of K6's partial conv of ``count`` operands in a warp's chain
+    buffer, every partial between BIG guards of 2b floats (the kernel's
+    fused_partial_offset; ``count = d``: the buffer's floats)."""
+    return 2 * b + sum(2 * fused_cap(c, d, b) + 1 + 2 * b for c in range(count))
+
+
+def fused_suffix_offset(d, b):
+    """Floats from a K6 warp's prefix chain buffer to its suffix chain
+    buffer (the kernel's fused_suffix_offset): the buffer rounded up to 16
+    modulo 32, so that the two chains' lanes of a pass read banks 16 apart."""
+    pf = fused_partial_offset(d, d, b)
+    return pf + (48 - pf % 32) % 32
+
+
+def fused_smem_bytes(n, r, dc, q, warps):
+    """Dynamic shared memory of one K6 block (one frame) of ``warps`` warps:
+    v2c [R, DC, Q] and the totals [N, Q], each warp's prefix and suffix
+    chain buffers, and the block's table of DC + 1 partial offsets and the
+    DC slots in combine order (4-byte ints).
+
+    4 (R DC Q + N Q + W (S + P) + 2 DC + 1) bytes, P =
+    :func:`fused_partial_offset` (DC, DC, B) and S =
+    :func:`fused_suffix_offset` (DC, B).  A Python copy of the kernel's
+    ``qary_fused_smem_bytes`` (with ``fused_cap``, ``fused_partial_offset``
+    and ``fused_suffix_offset``), so that the chooser and
+    ``QaryDecoder``'s fit run without the library.  Nothing but the card
+    test ``test_fused_launch_configuration_on_the_card`` and
+    ``chip_smoke.py`` phase 6 holds the two copies equal."""
+    b = (q - 1) // 2
+    warp_floats = fused_suffix_offset(dc, b) + fused_partial_offset(dc, dc, b)
+    return 4 * (r * dc * q + n * q + warps * warp_floats + 2 * dc + 1)
+
+
+def fused_launch(n, r, dc, q, smem_block, smem_sm):
+    """K6's launch configuration for a code of ``n`` variables and ``r``
+    checks of ``dc`` slots over ``q`` symbols on a device with the
+    shared-memory limits ``smem_block`` and ``smem_sm``
+    (:func:`~sca_ldpc_tpu_torch.ops.kernels.circulant_cuda.smem_limits`).
+
+    Of :data:`FUSED_WARPS` down to 8 warps, the instance whose blocks hold
+    the most warps an SM, by shared memory (with what CUDA reserves for each
+    block: the SM's shared memory less what one block may opt in to) and by
+    registers (:data:`FUSED_SM_WARPS`); among instances that tie, the
+    smallest block: more frames in flight and fewer warps at each
+    ``__syncthreads()``.  The 4-warp instance only when no larger block
+    fits: it keeps the frames that outgrew 8 warps, and was slower wherever
+    8 fit.  On the H100 (NVIDIA H100 80GB HBM3, 700 W; ``tools/qary_forms.py``,
+    one call) that is one block of 32 warps at the medium decoder (Q = 15;
+    16-warp blocks fit one an SM: 3.059 ms for 2.491 at 512 frames; 4-warp
+    blocks two an SM: 5.138) and four of 8 at Q = 3 (batch 4096: 2.424 ms
+    for 2.631 at one of 32 and 2.447 at eight of 4).  Raises ValueError
+    when not even one block of the smallest fits."""
+    reserved = smem_sm - smem_block
+    fitting = [(w, fused_smem_bytes(n, r, dc, q, w)) for w in FUSED_WARPS]
+    fitting = [(w, smem) for w, smem in fitting if smem <= smem_block]
+    if not fitting:
+        warps = FUSED_WARPS[-1]
+        raise ValueError(
+            f"qary_min_sum_fused_cuda: N={n}, R={r}, DC={dc}, Q={q} need {fused_smem_bytes(n, r, dc, q, warps)} B "
+            f"of shared memory per frame at {warps} warps; the bound is {smem_block} B (backend='chain' takes any size)")
+    best = None
+    for warps, smem in [x for x in fitting if x[0] >= 8] or fitting:
+        cfg = FusedLaunch(warps, min(smem_sm // (smem + reserved), FUSED_SM_WARPS // warps), smem)
+        if best is None or cfg.warps * cfg.blocks_per_sm >= best.warps * best.blocks_per_sm:
+            best = cfg
+    return best
+
+
+def fused_occupancy(n, r, dc, q, device="cuda"):
+    """K6's launch configuration on ``device``, as :func:`_occupancy`
+    gives it.  Needs a CUDA device."""
+    device = torch.device(device)
+    cfg = fused_launch(n, r, dc, q, *smem_limits(device))
+    return _occupancy(6, cfg, _lib().qary_fused_smem_bytes(n, r, dc, q, cfg.warps), device)
+
+
+def _occupancy(kernel, cfg, lib_smem, device):
+    """The launch configuration ``cfg`` of K6 (``kernel`` 6) or K7 (7) as a
+    dict of :class:`FusedLaunch`'s fields, the library's own count of its
+    shared memory (``lib_smem_bytes``), and ``resident_blocks`` and
+    ``resident_warps`` per SM of its instance from the occupancy
+    calculator."""
+    with torch.cuda.device(device):
+        blocks = _lib().qary_fused_occupancy(kernel, cfg.warps, cfg.smem_bytes)
+    if blocks < 0:
+        raise RuntimeError(f"qary_fused_occupancy failed: CUDA error {-blocks}")
+    return {**cfg._asdict(), "lib_smem_bytes": lib_smem, "resident_blocks": blocks,
+            "resident_warps": blocks * cfg.warps}
+
+
+def fused_ptxas(kernel):
+    """ptxas's ``-v`` report on the instances of K6 (``kernel`` 6) or K7
+    (7) of the built library: {warps: (registers, spill bytes stored and
+    loaded)} a thread.  Builds the library if needed (needs nvcc)."""
+    from ._build import build
+
+    name = {6: "qary_fused_kernel", 7: "qary_special_fused_kernel"}[kernel]
+    return _ptxas_report(build("qary_min_sum"), name + r"ILi(\d+)EE", lambda m: int(m[1]))
+
+
+def fused_adjacency_bad(n, chk_var, chk_sign, chk_mask, var_flat):
+    """A 0-d bool tensor, true when K6's adjacency is out of range:
+    ``chk_var`` outside [0, N) on a real slot, ``chk_sign`` not +-1 or
+    ``var_flat`` outside [0, R*DC]."""
+    real = chk_mask != 0
+    return (
+        (real & ((chk_var < 0) | (chk_var >= n))).any()
+        | ((chk_sign != 1) & (chk_sign != -1)).any()
+        | ((var_flat < 0) | (var_flat > chk_var.numel())).any()
+    )
 
 
 def _cap(count, d, b_sup, s_pre, s_mid):
@@ -118,7 +239,7 @@ def special_fused_launch(n_b, r, sw, b, bsum, smem_block, smem_sm):
     for warps in SPECIAL_WARPS:
         smem = special_fused_smem_bytes(n_b, r, sw, b, bsum, warps)
         if smem <= smem_block:
-            return SpecialLaunch(warps, min(smem_sm // (smem + reserved), SPECIAL_SM_WARPS // warps), smem)
+            return FusedLaunch(warps, min(smem_sm // (smem + reserved), SPECIAL_SM_WARPS // warps), smem)
     warps = SPECIAL_WARPS[-1]
     raise ValueError(
         f"qary_special_min_sum_fused_cuda: NB={n_b}, R={r}, SW={sw}, B={b}, BSUM={bsum} need "
@@ -127,29 +248,11 @@ def special_fused_launch(n_b, r, sw, b, bsum, smem_block, smem_sm):
 
 
 def special_fused_occupancy(n_b, r, sw, b, bsum, device="cuda"):
-    """K7's launch configuration on ``device`` (a dict of
-    :func:`special_fused_launch`'s fields), the library's own count of its
-    shared memory (``lib_smem_bytes``), and ``resident_blocks`` and
-    ``resident_warps`` per SM of its instance from the occupancy calculator.
-    Needs a CUDA device."""
+    """K7's launch configuration on ``device``, as :func:`_occupancy` gives
+    it.  Needs a CUDA device."""
     device = torch.device(device)
     cfg = special_fused_launch(n_b, r, sw, b, bsum, *smem_limits(device))
-    with torch.cuda.device(device):
-        blocks = _lib().qary_special_fused_occupancy(cfg.warps, cfg.smem_bytes)
-    if blocks < 0:
-        raise RuntimeError(f"qary_special_fused_occupancy failed: CUDA error {-blocks}")
-    lib_smem = _lib().qary_special_fused_smem_bytes(n_b, r, sw, b, bsum, cfg.warps)
-    return {**cfg._asdict(), "lib_smem_bytes": lib_smem, "resident_blocks": blocks,
-            "resident_warps": blocks * cfg.warps}
-
-
-def special_fused_ptxas():
-    """ptxas's ``-v`` report on K7's instances of the built library:
-    {warps: (registers, spill bytes stored and loaded)} a thread.  Builds
-    the library if needed (needs nvcc)."""
-    from ._build import build
-
-    return _ptxas_report(build("qary_min_sum"), r"qary_special_fused_kernelILi(\d+)EE", lambda m: int(m[1]))
+    return _occupancy(7, cfg, _lib().qary_special_fused_smem_bytes(n_b, r, sw, b, bsum, cfg.warps), device)
 
 
 def chain_exclusive_plain(v2c, s_mid, s_out, extra=None):
@@ -214,13 +317,19 @@ def qary_min_sum_fused_plain(channel, chk_var, chk_sign, chk_mask, var_flat, b_r
     return _qary_min_sum(chk_var, chk_sign, chk_mask, var_flat, channel, int(max_iter), int(b_range))
 
 
-def qary_min_sum_fused_cuda(channel, chk_var, chk_sign, chk_mask, var_flat, b_range, max_iter):
+def qary_min_sum_fused_cuda(channel, chk_var, chk_sign, chk_mask, var_flat, b_range, max_iter, warps=None,
+                            check_adjacency=True):
     """Whole q-ary min-sum decode, as the JAX package's ``qary_min_sum_fused``.
 
     channel: [Bt, N, Q] float32 finite min-sum LLRs, Q = 2*b_range+1;
     chk_var, chk_sign, chk_mask: [R, DC] int32 and var_flat: [N, DV] int32,
     as in :class:`~sca_ldpc_tpu_torch.codes.layout.CodeLayout` (chk_mask 0/1).
-    Returns hard decisions [Bt, N] int32 in [-b_range..b_range].
+    Returns hard decisions [Bt, N] int32 in [-b_range..b_range].  ``warps``
+    (for tests) forces one of :data:`FUSED_WARPS` in place of
+    :func:`fused_launch`'s choice.  The adjacency's range
+    (:func:`fused_adjacency_bad`) is checked on the device, a host sync,
+    unless ``check_adjacency`` is False: :class:`~sca_ldpc_tpu_torch.ops.qary.QaryDecoder`
+    checks its fixed arrays once, when it is built.
     """
     device = channel.device
     if channel.ndim != 3 or chk_var.ndim != 2 or var_flat.ndim != 2:
@@ -241,19 +350,13 @@ def qary_min_sum_fused_cuda(channel, chk_var, chk_sign, chk_mask, var_flat, b_ra
         return qary_min_sum_fused_plain(channel, chk_var, chk_sign, chk_mask, var_flat, b_range, max_iter)
 
     stream = _cuda_stream(device)
-    smem, smem_block = fused_smem_bytes(n, r, dc, q), smem_limits(device)[0]
-    if smem > smem_block:
-        raise ValueError(
-            f"qary_min_sum_fused_cuda: N={n}, R={r}, DC={dc}, Q={q} need {smem} B of shared memory "
-            f"per frame; the bound is {smem_block} B (backend='chain' takes any size)"
-        )
-    real = chk_mask != 0
-    bad = (
-        (real & ((chk_var < 0) | (chk_var >= n))).any()
-        | ((chk_sign != 1) & (chk_sign != -1)).any()
-        | ((var_flat < 0) | (var_flat > r * dc)).any()
-    )
-    if bool(bad):
+    if warps is None:
+        warps = fused_launch(n, r, dc, q, *smem_limits(device)).warps
+    elif warps not in FUSED_WARPS:
+        raise ValueError(f"warps={warps} is not one of K6's instances {FUSED_WARPS}")
+    elif fused_smem_bytes(n, r, dc, q, warps) > smem_limits(device)[0]:
+        raise ValueError(f"warps={warps}: a block does not fit the card's shared memory")
+    if check_adjacency and bool(fused_adjacency_bad(n, chk_var, chk_sign, chk_mask, var_flat)):
         raise ValueError("adjacency out of range: chk_var in [0, N) on real slots, chk_sign +-1, "
                          "var_flat in [0, R*DC]")
     with torch.cuda.device(device):
@@ -261,15 +364,17 @@ def qary_min_sum_fused_cuda(channel, chk_var, chk_sign, chk_mask, var_flat, b_ra
         if bt:
             rc = _lib().qary_min_sum_fused(
                 channel.data_ptr(), chk_var.data_ptr(), chk_sign.data_ptr(), chk_mask.data_ptr(),
-                var_flat.data_ptr(), bt, n, r, dc, dv, q, max_iter, hard.data_ptr(), stream,
+                var_flat.data_ptr(), bt, n, r, dc, dv, q, max_iter, warps, hard.data_ptr(), stream,
             )
             if rc != 0:
                 raise RuntimeError(f"qary_min_sum_fused launch failed: CUDA error {rc}")
             qary_min_sum_fused_cuda.launches += 1
+            qary_min_sum_fused_cuda.instances.add(warps)
     return hard
 
 
 qary_min_sum_fused_cuda.launches = 0
+qary_min_sum_fused_cuda.instances = set()  # the instances (warps a block) launched
 
 
 def qary_special_min_sum_fused_plain(channel_llr, channel_sum_row, vsum_signed, bvar_idx, bvar_sign, bvar_mask,

@@ -181,9 +181,13 @@ class QaryDecoder:
         if backend is None:
             def fits():
                 from .kernels.circulant_cuda import smem_limits
-                from .kernels.qary_cuda import fused_smem_bytes
+                from .kernels.qary_cuda import fused_launch
 
-                return fused_smem_bytes(lay.n, lay.r, lay.dc, self.q) <= smem_limits(self.device)[0]
+                try:
+                    fused_launch(lay.n, lay.r, lay.dc, self.q, *smem_limits(self.device))
+                except ValueError:
+                    return False
+                return True
 
             backend = default_backend(self.device, self.early_exit, fits)
         if backend not in BACKENDS:
@@ -191,17 +195,21 @@ class QaryDecoder:
         if backend == "fused" and self.early_exit:
             raise ValueError("backend='fused' runs fixed iterations in-kernel")
         self.backend = backend
+        adjacency = tuple(np.asarray(a, np.int32) for a in (lay.chk_var, lay.chk_sign, lay.chk_mask, lay.var_flat))
+        if backend == "fused":
+            # checked once here, so that a decode makes no host sync for it
+            from .kernels.qary_cuda import fused_adjacency_bad
+
+            if fused_adjacency_bad(lay.n, *map(torch.from_numpy, adjacency)):
+                raise ValueError("H's entries must be -1, 0 or +1 for backend='fused'")
         # the adjacency as int32 device arrays, as every backend takes it
-        self._args = tuple(
-            torch.as_tensor(np.asarray(a, np.int32), device=self.device)
-            for a in (lay.chk_var, lay.chk_sign, lay.chk_mask, lay.var_flat)
-        )
+        self._args = tuple(torch.as_tensor(a, device=self.device) for a in adjacency)
 
     def _decode_llr(self, llr):
         if self.backend == "fused":
             from .kernels.qary_cuda import qary_min_sum_fused_cuda
 
-            return qary_min_sum_fused_cuda(llr, *self._args, self.b, self.max_iter)
+            return qary_min_sum_fused_cuda(llr, *self._args, self.b, self.max_iter, check_adjacency=False)
         return _qary_min_sum(*self._args, llr, self.max_iter, self.b,
                              backend=self.backend, early_exit=self.early_exit)
 

@@ -1,35 +1,49 @@
-"""Time the port's Kyber decode kernel K7 (``qary_min_sum.cu``'s
-``qary_special_min_sum_fused``) against its form before the Hopper redesign,
-on one NVIDIA GPU, in one process.
+"""Time the port's q-ary decode kernels K6 (``qary_min_sum.cu``'s
+``qary_min_sum_fused``) and K7 (``qary_special_min_sum_fused``, the Kyber
+decode) against their forms before the Hopper redesigns, on one NVIDIA GPU,
+in one process.
 
-The earlier source is ``sca_ldpc_tpu_torch/csrc/qary_min_sum.cu`` as of commit
-f75bded, whose K7 entry point takes no launch configuration (8 warps a block,
-one instance).  Write it into the git-ignored ``build/`` from a checkout with
-history, then run the script (the card's machine needs no git):
+The earlier sources are ``sca_ldpc_tpu_torch/csrc/qary_min_sum.cu`` as of
+commit 75ccc0c for K6 and as of commit f75bded for K7; in each, the kernel's
+entry point takes no launch configuration (8 warps a block, one instance).
+Write them into the git-ignored ``build/`` from a checkout with history, then
+run the script (the card's machine needs no git):
 
-    mkdir -p build/qary_old
+    mkdir -p build/qary_old build/qary_old_k6
     git show f75bded:sca_ldpc_tpu_torch/csrc/qary_min_sum.cu > build/qary_old/qary_min_sum.cu
+    git show 75ccc0c:sca_ldpc_tpu_torch/csrc/qary_min_sum.cu > build/qary_old_k6/qary_min_sum.cu
     python3 -m sca_ldpc_tpu_torch.tools.qary_forms --out build/qary_forms.json
 
-It is compiled with the package's nvcc flags beside the current source.  The
-cells are DecoderN1280R512SW6 (``gen_ldpc_matrix(6, seed 0, check_blocks=2)``)
+``--kernels k6`` or ``--kernels k7`` runs one part.  Each earlier source is
+compiled with the package's nvcc flags beside the current one.
+
+K6's cells are the medium decoder
+(``make_regular_ldpc_parity_check_matrix_identity(300, 150, 3, 6, seed 1)``,
+N = 450, R = 150, DC = 7) at B = 7, 10 iterations: 512 frames of the
+Dirichlet channels that ``chip_smoke.py`` phase 6 makes (its seed, after
+phase 5's draws, in its order), and 4096 frames of Dirichlet channels from
+another seed; and the same code at B = 1, 5 iterations, 4096 frames of the
+q-ary FER's channel at rate 0.005 (``DecoderN450R150V3C7B1``'s K6 call).
+K7's cells are DecoderN1280R512SW6 (``gen_ldpc_matrix(6, seed 0, check_blocks=2)``)
 at eta = 2 and 3, 10 iterations: 512 frames of the Dirichlet channels that
 ``chip_smoke.py`` phase 8 makes (its seed, in its order), and 4096 frames of
 Dirichlet channels from another seed (K7's time does not depend on the
-values: fixed iterations, no branch on data).  For each cell: checks that both
-forms give the same ``hard_b`` and ``hard_s`` on every frame, times them in
+values: fixed iterations, no branch on data; nor does K6's).  For each cell:
+checks that both forms give the same decisions on every frame, times them in
 turns (old, new, new, old; CUDA events, best of 3 after a warm-up), sweeps
 ``max_iter`` over 0, 1 and 2 (set-up, the last iteration, and each earlier
 one), and times the current kernel at every one of its instances whose block
-fits the card (``SPECIAL_WARPS``), each checked against the chosen one.  Both
-forms are called through their C entry points (the wrapper's argument checks,
-about 0.2 ms a call with a host sync, are timed by ``chip_smoke.py``).
+fits the card (``FUSED_WARPS``, ``SPECIAL_WARPS``), each checked against the
+chosen one.  Both forms are called through their C entry points (the
+wrapper's argument checks, about 0.2 ms a call with a host sync, are timed
+by ``chip_smoke.py``).
 
 ``--variant PATH`` (repeatable) also compiles an edited copy of either
-source (told apart by ``qary_special_fused_occupancy``, which only the current
-interface has), says on each cell whether its decisions equal the current
-kernel's, and times it; a copy with the current interface runs at every
-instance whose block, by the copy's own count of shared memory, fits.  The
+source (a K6 that takes a warp count has ``qary_fused_occupancy``, a K7
+that takes one has it or ``qary_special_fused_occupancy``), says on each
+cell whether its decisions equal the current kernel's, and times it; a copy
+with the current interface runs at every instance whose block, by the
+copy's own count of shared memory, fits.  The
 way to read what bounds the kernel (an edited copy gives wrong decisions and
 only its time is read) or to try a tuning before it replaces the source.
 
@@ -44,18 +58,26 @@ import json
 import sys
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from ..channels import probs_to_llr
+from ..codes import make_regular_ldpc_parity_check_matrix_identity
 from ..models.kyber import gen_ldpc_matrix
-from ..ops import QarySpecialDecoder, minplus
+from ..ops import QaryDecoder, QarySpecialDecoder, minplus
 from ..ops.kernels import _build
 from ..ops.kernels.bounds import chain_bound_ms
 from ..ops.kernels.circulant_cuda import smem_limits
 from ..ops.kernels import qary_cuda
-from ..ops.kernels.qary_cuda import SPECIAL_WARPS, special_fused_launch, special_fused_ptxas
+from ..ops.kernels.qary_cuda import (
+    FUSED_WARPS,
+    SPECIAL_WARPS,
+    fused_launch,
+    fused_ptxas,
+    special_fused_launch,
+)
 from ..ops.qary import _signed
 from .circulant_forms import _card, _compile_old, _ms, _ptxas, _turns
 
@@ -63,46 +85,64 @@ SW, ITERS, SMOKE_SEED = 6, 10, 5678
 # (cell, eta, frames); the 512-frame cells are chip_smoke.py phase 8's inputs
 CELLS = (("eta 2, 512 frames", 2, 512), ("eta 2, batch 4096", 2, 4096), ("eta 3, 512 frames", 3, 512),
          ("eta 3, batch 4096", 3, 4096))
+K6_SMOKE_SEED, FER_RATE = 4321, 0.005
+# (cell, B, iterations, frames); the 512-frame cell is chip_smoke.py phase 6's inputs
+K6_CELLS = (("medium decoder, 512 frames", 7, 10, 512), ("medium decoder, batch 4096", 7, 10, 4096),
+            ("Q = 3, batch 4096", 1, 5, 4096))
+
+
+class _Cell(NamedTuple):
+    """One cell: its inputs as the C entry point takes them."""
+
+    kernel: int  # 6 or 7
+    name: str
+    meta: dict  # the cell's alphabet, frames and iterations, as written out
+    inputs: tuple  # tensors, in the entry point's order
+    ints: tuple  # the entry point's ints before max_iter
+    out_shapes: tuple  # its int32 outputs'
+    smem_args: tuple  # its count of a block's shared memory takes these, then the warps
+    cfg: object  # the chooser's FusedLaunch
+    bound: object  # nbytes -> (bound ms, "operations" or "bytes")
 
 
 class _Lib:
-    """A built K7 source: its library and whether it has the current
+    """A built source's K6 (``kernel`` 6) or K7 (7): its entry point, its
+    own count of a block's shared memory, and whether it has the current
     interface (a warp count a block)."""
 
-    def __init__(self, lib, log):
-        self.lib, self.log = lib, log
+    def __init__(self, kernel, lib, log):
+        self.log = log
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        self.current = hasattr(self.lib, "qary_special_fused_occupancy")
-        self.lib.qary_special_min_sum_fused.argtypes = [p] * 8 + [i] * (9 if self.current else 8) + [p, p, p]
-        self.lib.qary_special_min_sum_fused.restype = i
-        self.lib.qary_special_fused_smem_bytes.argtypes = [i] * (6 if self.current else 5)
-        self.lib.qary_special_fused_smem_bytes.restype = ll
+        if kernel == 6:  # channel and 4 adjacency arrays, 7 ints, hard
+            self.current = hasattr(lib, "qary_fused_occupancy")
+            self.fn, self.smem, self.warps = lib.qary_min_sum_fused, lib.qary_fused_smem_bytes, FUSED_WARPS
+            n_ptr, n_int, n_smem, n_out = 5, 7, 4, 1
+        else:  # 3 channels and 5 adjacency arrays, 8 ints, hard_b and hard_s
+            self.current = hasattr(lib, "qary_fused_occupancy") or hasattr(lib, "qary_special_fused_occupancy")
+            self.fn, self.smem, self.warps = (lib.qary_special_min_sum_fused, lib.qary_special_fused_smem_bytes,
+                                              SPECIAL_WARPS)
+            n_ptr, n_int, n_smem, n_out = 8, 8, 5, 2
+        self.fn.argtypes = [p] * n_ptr + [i] * (n_int + self.current) + [p] * (n_out + 1)
+        self.fn.restype = i
+        self.smem.argtypes = [i] * (n_smem + self.current)
+        self.smem.restype = ll
 
-    @classmethod
-    def compile(cls, src):
-        return cls(*_compile_old(src, "qary_min_sum_" + Path(src).stem))
-
-    def instances(self, n_b, r, eta, bsum, dev):
+    def instances(self, cell):
         """The warp counts whose block fits the card by this source's own
         count (None: the earlier form's one launch)."""
         if not self.current:
             return [None]
-        smem_block = smem_limits(dev)[0]
-        return [w for w in SPECIAL_WARPS if self.lib.qary_special_fused_smem_bytes(n_b, r, SW, eta, bsum, w) <= smem_block]
+        smem_block = smem_limits(cell.inputs[0].device)[0]
+        return [w for w in self.warps if self.smem(*cell.smem_args, w) <= smem_block]
 
-    def __call__(self, args, eta, bsum, max_iter, warps=None):
-        llr_b, llr_s, vsum, bvar_idx, bvar_sign, bvar_mask, var_flat, sum_sign = args
-        bt, n_b, _ = llr_b.shape
-        r, dv = bvar_idx.shape[0], var_flat.shape[1]
-        hard_b = torch.empty((bt, n_b), dtype=torch.int32, device=llr_b.device)
-        hard_s = torch.empty((bt, r), dtype=torch.int32, device=llr_b.device)
-        rc = self.lib.qary_special_min_sum_fused(*(x.data_ptr() for x in args), bt, n_b, r, SW, dv, eta, bsum,
-                                                 int(max_iter), *(() if warps is None else (warps,)),
-                                                 hard_b.data_ptr(), hard_s.data_ptr(),
-                                                 torch.cuda.current_stream().cuda_stream)
+    def __call__(self, cell, max_iter, warps=None):
+        outs = tuple(torch.empty(s, dtype=torch.int32, device=cell.inputs[0].device) for s in cell.out_shapes)
+        rc = self.fn(*(x.data_ptr() for x in cell.inputs), *cell.ints, int(max_iter),
+                     *(() if warps is None else (warps,)), *(o.data_ptr() for o in outs),
+                     torch.cuda.current_stream().cuda_stream)
         if rc != 0:
-            raise RuntimeError(f"qary_special_min_sum_fused (warps {warps}) failed: CUDA error {rc}")
-        return hard_b, hard_s
+            raise RuntimeError(f"K{cell.kernel} (warps {warps}) failed: CUDA error {rc}")
+        return outs
 
 
 def _inputs(H, dec, eta, frames, rng, dev):
@@ -118,82 +158,133 @@ def _inputs(H, dec, eta, frames, rng, dev):
     return (llr_b, llr_s, _signed(llr_s, dec._args[6]).contiguous(), *dec._args[:4], dec._args[6])
 
 
+def _k6_smoke_llr(rng, n, dev):
+    """chip_smoke.py phase 6's medium-decoder LLRs: phase 5's draws first."""
+    for shape in ((512, 150, 7, 15), (512, 150, 7, 15), (512, 512, SW, 5), (512, 512, 25)):
+        rng.rand(*shape)
+    probs = rng.dirichlet(np.ones(15), size=(512, n)).astype(np.float32)
+    return minplus.clip_inf(probs_to_llr(torch.from_numpy(probs).to(dev))).contiguous()
+
+
+def _k6_inputs(b, frames, n, rng, dev):
+    """Dirichlet LLRs (B = 7) or the q-ary FER's channel at FER_RATE (B = 1:
+    each symbol's good or bad distribution), clipped as QaryDecoder clips them."""
+    q = 2 * b + 1
+    if b > 1:
+        probs = rng.dirichlet(np.ones(q), size=(frames, n)).astype(np.float32)
+    else:
+        good = np.full(q, 1.0 / q, np.float32)
+        bad = good.copy()
+        good[[b, -1]] = [1.75 / q, 0.25 / q]
+        bad[[-1, b]] = [1.75 / q, 0.25 / q]
+        probs = np.where((rng.rand(frames, n) < FER_RATE)[..., None], bad, good)
+    return minplus.clip_inf(probs_to_llr(torch.from_numpy(probs).to(dev))).contiguous()
+
+
+def _k6_cells(dev):
+    """K6's cells, one at a time (each frees the one before)."""
+    H = make_regular_ldpc_parity_check_matrix_identity(300, 150, 3, 6, 1)
+    r, n = H.shape
+    smoke = _k6_smoke_llr(np.random.RandomState(K6_SMOKE_SEED), n, dev)
+    for name, b, iters, frames in K6_CELLS:
+        q = 2 * b + 1
+        adjacency = QaryDecoder(H, b, iters, backend="fused", device=dev)._args
+        dc, dv = adjacency[0].shape[1], adjacency[3].shape[1]
+        llr = smoke if frames == 512 else _k6_inputs(b, frames, n, np.random.RandomState(frames + b), dev)
+        yield _Cell(6, name, {"b": b, "frames": frames, "iterations": iters}, (llr, *adjacency),
+                    (frames, n, r, dc, dv, q), ((frames, n),), (n, r, dc, q), fused_launch(n, r, dc, q, *smem_limits(dev)),
+                    lambda nbytes, b=b, dc=dc, iters=iters, frames=frames: chain_bound_ms(
+                        frames * r * iters, dc, b, (dc - 1) * b, b, 0, nbytes))
+
+
+def _k7_cells(dev):
+    """K7's cells, one at a time (each frees the one before)."""
+    H = gen_ldpc_matrix(SW, 0, check_blocks=2)
+    r, n_b = H.shape[0], H.shape[1] - H.shape[0]
+    decs = {eta: QarySpecialDecoder(H, eta, SW * eta, ITERS, backend="fused", device=dev) for eta in (2, 3)}
+    smoke_rng = np.random.RandomState(SMOKE_SEED)
+    smoke = {eta: _inputs(H, decs[eta], eta, 512, smoke_rng, dev) for eta in (2, 3)}  # phase 8's draws, in order
+    for name, eta, frames in CELLS:
+        bsum = SW * eta
+        args = smoke[eta] if frames == 512 else _inputs(H, decs[eta], eta, frames, np.random.RandomState(frames + eta),
+                                                         dev)
+        dv = args[6].shape[1]
+        yield _Cell(7, name, {"eta": eta, "frames": frames, "iterations": ITERS}, args,
+                    (frames, n_b, r, SW, dv, eta, bsum), ((frames, n_b), (frames, r)), (n_b, r, SW, eta, bsum),
+                    special_fused_launch(n_b, r, SW, eta, bsum, *smem_limits(dev)),
+                    lambda nbytes, eta=eta, bsum=bsum, frames=frames: chain_bound_ms(
+                        frames * r * ITERS, SW, eta, (2 * SW - 1) * eta, eta, bsum, nbytes))
+
+
+def _run(cell, old, new, variants, card):
+    """Both forms, the current one's instances and the variants on one cell."""
+    cfg, iters = cell.cfg, cell.meta["iterations"]
+
+    def run_new(m=iters, warps=cfg.warps):
+        return new(cell, m, warps)
+
+    def run_old(m=iters):
+        return old(cell, m)
+
+    out_n = run_new()
+    same = _same(out_n, run_old())
+    torch.cuda.synchronize()
+    bound, bound_by = cell.bound(sum(x.numel() * x.element_size() for x in (*cell.inputs, *out_n)))
+    turns, t_old, t_new = _turns(run_old, run_new)
+    instances = {w: {"equal": _same(run_new(warps=w), out_n), "ms": _ms(lambda: run_new(warps=w))}
+                 for w in new.instances(cell)}
+    res = {"kernel": f"K{cell.kernel}", "cell": cell.name, **cell.meta, "launch": cfg._asdict(),
+           "decisions_equal": same, "turns_ms": turns, "old_ms": t_old, "new_ms": t_new,
+           "speedup": t_old / t_new, "bound_ms": bound, "bound_by": bound_by,
+           "new_share_of_bound": bound / t_new, "old_share_of_bound": bound / t_old,
+           "instances": instances, "sweep": {"old": _sweep(run_old), "new": _sweep(run_new)}, "variants": {}}
+    print(f"K{cell.kernel} {cell.name}: decisions equal {same}; old {t_old:.3f} ms, new {t_new:.3f} ms "
+          f"({res['speedup']:.2f}x) at {cfg.warps} warps a block, {cfg.blocks_per_sm} an SM ({cfg.smem_bytes} B); "
+          f"bound {bound:.3f} ms ({bound_by}), new at {100 * bound / t_new:.1f}% of it [{card}]")
+    print("  instances (warps a block: ms, equal): " + " | ".join(
+        f"{k} {v['ms']:.3f} {v['equal']}" for k, v in instances.items()))
+    print("  sweep (set-up, max_iter 1 less 0, 2 less 1, ms): " + " ".join(
+        f"{k} {[round(v[x], 3) for x in ('set_up', 'last_iteration', 'iteration')]}" for k, v in res["sweep"].items()))
+    for label, lib in variants:
+        v = {}
+        for w in lib.instances(cell):
+            v["-" if w is None else w] = {"equal": _same(lib(cell, iters, w), out_n),
+                                          "ms": _ms(lambda: lib(cell, iters, w)),
+                                          "sweep": _sweep(lambda m: lib(cell, m, w))}
+        res["variants"][label] = v
+        print(f"  variant {label}: " + " | ".join(
+            f"{k} {x['ms']:.3f} ms, decisions equal to the current kernel {x['equal']}, iteration "
+            f"{x['sweep']['iteration']:.3f}" for k, x in v.items()))
+    return res
+
+
 def _sweep(fn):
     t = [_ms(lambda m=m: fn(m)) for m in range(3)]
     return {"ms_at_max_iter_0_1_2": t, "set_up": t[0], "last_iteration": t[1] - t[0], "iteration": t[2] - t[1]}
 
 
 def _same(x, y):
-    return torch.equal(x[0], y[0]) and torch.equal(x[1], y[1])
-
-
-def _cells(old, new, variants, dev, card):
-    H = gen_ldpc_matrix(SW, 0, check_blocks=2)
-    r, n_b = H.shape[0], H.shape[1] - H.shape[0]
-    decs = {eta: QarySpecialDecoder(H, eta, SW * eta, ITERS, backend="fused", device=dev) for eta in (2, 3)}
-    smoke_rng = np.random.RandomState(SMOKE_SEED)
-    smoke = {eta: _inputs(H, decs[eta], eta, 512, smoke_rng, dev) for eta in (2, 3)}  # phase 8's draws, in order
-    cells = []
-    for name, eta, frames in CELLS:
-        bsum = SW * eta
-        rng = np.random.RandomState(frames + eta)
-        args = smoke[eta] if frames == 512 else _inputs(H, decs[eta], eta, frames, rng, dev)
-        cfg = special_fused_launch(n_b, r, SW, eta, bsum, *smem_limits(dev))
-
-        def run_new(m=ITERS, warps=cfg.warps):
-            return new(args, eta, bsum, m, warps)
-
-        def run_old(m=ITERS):
-            return old(args, eta, bsum, m)
-
-        out_n = run_new()
-        same = _same(out_n, run_old())
-        torch.cuda.synchronize()
-        nbytes = sum(x.numel() * x.element_size() for x in (*args, *out_n))
-        bound, bound_by = chain_bound_ms(frames * r * ITERS, SW, eta, (2 * SW - 1) * eta, eta, bsum, nbytes)
-        turns, t_old, t_new = _turns(run_old, run_new)
-        instances = {w: {"equal": _same(run_new(warps=w), out_n), "ms": _ms(lambda: run_new(warps=w))}
-                     for w in new.instances(n_b, r, eta, bsum, dev)}
-        cell = {"cell": name, "eta": eta, "frames": frames, "iterations": ITERS, "launch": cfg._asdict(),
-                "decisions_equal": same, "turns_ms": turns, "old_ms": t_old, "new_ms": t_new,
-                "speedup": t_old / t_new, "bound_ms": bound, "bound_by": bound_by,
-                "new_share_of_bound": bound / t_new, "old_share_of_bound": bound / t_old,
-                "instances": instances, "sweep": {"old": _sweep(run_old), "new": _sweep(run_new)}, "variants": {}}
-        print(f"K7 {name}: decisions equal {same}; old {t_old:.3f} ms, new {t_new:.3f} ms ({cell['speedup']:.2f}x) "
-              f"at {cfg.warps} warps a block, {cfg.blocks_per_sm} an SM ({cfg.smem_bytes} B); bound {bound:.3f} ms "
-              f"({bound_by}), new at {100 * bound / t_new:.1f}% of it [{card}]")
-        print("  instances (warps a block: ms, equal): " + " | ".join(
-            f"{k} {v['ms']:.3f} {v['equal']}" for k, v in instances.items()))
-        print("  sweep (set-up, last iteration, each earlier one, ms): " + " ".join(
-            f"{k} {[round(v[x], 3) for x in ('set_up', 'last_iteration', 'iteration')]}"
-            for k, v in cell["sweep"].items()))
-        for label, lib in variants:
-            v = {}
-            for w in lib.instances(n_b, r, eta, bsum, dev):
-                v["-" if w is None else w] = {"equal": _same(lib(args, eta, bsum, ITERS, w), out_n),
-                                              "ms": _ms(lambda: lib(args, eta, bsum, ITERS, w)),
-                                              "sweep": _sweep(lambda m: lib(args, eta, bsum, m, w))}
-            cell["variants"][label] = v
-            print(f"  variant {label}: " + " | ".join(
-                f"{k} {x['ms']:.3f} ms, decisions equal to the current kernel {x['equal']}, iteration "
-                f"{x['sweep']['iteration']:.3f}" for k, x in v.items()))
-        cells.append(cell)
-        del args
-    return cells
+    return all(torch.equal(a, b) for a, b in zip(x, y))
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--old", default="build/qary_old/qary_min_sum.cu", help="the earlier qary_min_sum.cu")
+    ap.add_argument("--kernels", nargs="+", choices=("k6", "k7"), default=["k6", "k7"])
+    ap.add_argument("--old", default="build/qary_old/qary_min_sum.cu", help="K7's earlier qary_min_sum.cu (f75bded)")
+    ap.add_argument("--old-k6", default="build/qary_old_k6/qary_min_sum.cu",
+                    help="K6's earlier qary_min_sum.cu (75ccc0c)")
     ap.add_argument("--variant", action="append", default=[], metavar="PATH",
-                    help="an edited copy of either source, timed beside the current kernel")
+                    help="an edited copy of any of the sources, timed beside the current kernels")
     ap.add_argument("--out", default="build/qary_forms.json")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("qary_forms: no CUDA device", file=sys.stderr)
         return 1
-    if not Path(args.old).is_file():
-        print(f"qary_forms: no earlier source at {args.old}; write it with git show (see the module's docstring)",
+    olds = {"k6": args.old_k6, "k7": args.old}
+    kernels = [k for k in ("k6", "k7") if k in args.kernels]
+    missing = [olds[k] for k in kernels if not Path(olds[k]).is_file()]
+    if missing:
+        print(f"qary_forms: no earlier source at {missing}; write it with git show (see the module's docstring)",
               file=sys.stderr)
         return 1
     dev = torch.device("cuda:0")
@@ -201,21 +292,30 @@ def main():
     print(card)
     out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)
-    with ThreadPoolExecutor(len(args.variant) + 2) as pool:  # one nvcc a source, all at once
+    srcs = [olds[k] for k in kernels] + args.variant
+    with ThreadPoolExecutor(len(srcs) + 1) as pool:  # one nvcc a source, all at once
         built = pool.submit(_build.build, "qary_min_sum")
-        libs = list(pool.map(_Lib.compile, [args.old, *args.variant]))
-        new = _Lib(qary_cuda._lib(), built.result().with_suffix(".log").read_text())
-    old, variants = libs[0], [(Path(p).stem, lib) for p, lib in zip(args.variant, libs[1:])]
-    out.with_name(f"{out.stem}_ptxas_old.log").write_text(old.log)
-    out.with_name(f"{out.stem}_ptxas_new.log").write_text(new.log)
-    print("ptxas old:", " | ".join(_ptxas(old.log)))
-    print("ptxas new K7 {warps a block: (registers, spill bytes)}:", special_fused_ptxas())
-    for label, lib in variants:
-        print(f"ptxas variant {label}:", " | ".join(_ptxas(lib.log)))
-    results = {"card": card, "torch": torch.__version__, "cells": _cells(old, new, variants, dev, card)}
+        compiled = list(pool.map(lambda src: _compile_old(src, "qary_min_sum_" + Path(src).stem), srcs))
+        new = (qary_cuda._lib(), built.result().with_suffix(".log").read_text())
+    old = dict(zip(kernels, compiled))
+    variants = [(Path(src).stem, c) for src, c in zip(args.variant, compiled[len(kernels):])]
+    out.with_name(f"{out.stem}_ptxas_new.log").write_text(new[1])
+    for k, (_, log) in old.items():
+        out.with_name(f"{out.stem}_ptxas_old_{k}.log").write_text(log)
+        print(f"ptxas old {k}:", " | ".join(_ptxas(log)))
+    for kernel in (6, 7):
+        print(f"ptxas new K{kernel} {{warps a block: (registers, spill bytes)}}:", fused_ptxas(kernel))
+    for label, (_, log) in variants:
+        print(f"ptxas variant {label}:", " | ".join(_ptxas(log)))
+    cells = []
+    for k, kernel, make in (("k6", 6, _k6_cells), ("k7", 7, _k7_cells)):
+        if k in old:
+            libs = [(label, _Lib(kernel, *c)) for label, c in variants]
+            cells += [_run(cell, _Lib(kernel, *old[k]), _Lib(kernel, *new), libs, card) for cell in make(dev)]
+    results = {"card": card, "torch": torch.__version__, "cells": cells}
     out.write_text(json.dumps(results, indent=1))
     print(f"wrote {out}")
-    bad = [c["cell"] for c in results["cells"]
+    bad = [f"{c['kernel']} {c['cell']}" for c in cells
            if not c["decisions_equal"] or not all(v["equal"] for v in c["instances"].values())]
     if bad:
         print(f"qary_forms: the forms or the instances disagree in {bad}", file=sys.stderr)

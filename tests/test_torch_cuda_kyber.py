@@ -19,11 +19,11 @@ from sca_ldpc_tpu_torch.ops.kernels.circulant_cuda import smem_limits
 from sca_ldpc_tpu_torch.ops.kernels.qary_cuda import (
     SPECIAL_WARPS,
     chain_exclusive_cuda,
+    fused_ptxas,
     qary_special_min_sum_fused_cuda,
     qary_special_min_sum_fused_plain,
     special_fused_launch,
     special_fused_occupancy,
-    special_fused_ptxas,
     special_fused_smem_bytes,
 )
 from sca_ldpc_tpu_torch.ops.qary import _signed
@@ -126,7 +126,7 @@ def test_launch_configuration_on_the_card(cuda, code, eta):
     assert occ["lib_smem_bytes"] == occ["smem_bytes"]
     assert (occ["warps"], occ["blocks_per_sm"]) == special_fused_launch(n_b, r, sw, eta, sw * eta, *smem_limits(cuda))[:2]
     assert occ["resident_blocks"] >= occ["blocks_per_sm"]
-    assert set(special_fused_ptxas()) == set(SPECIAL_WARPS)
+    assert set(fused_ptxas(7)) == set(SPECIAL_WARPS)
 
 
 def test_forced_launch_is_checked(cuda):

@@ -16,9 +16,16 @@ from sca_ldpc_tpu_torch.codes import (
     make_regular_ldpc_parity_check_matrix_identity,
 )
 from sca_ldpc_tpu_torch.ops import QaryDecoder, minplus
+from sca_ldpc_tpu_torch.ops.kernels import qary_cuda
+from sca_ldpc_tpu_torch.ops.kernels.circulant_cuda import smem_limits
 from sca_ldpc_tpu_torch.ops.kernels.qary_cuda import (
+    FUSED_WARPS,
     chain_exclusive_cuda,
     chain_exclusive_plain,
+    fused_launch,
+    fused_occupancy,
+    fused_ptxas,
+    fused_smem_bytes,
     qary_min_sum_fused_cuda,
     qary_min_sum_fused_plain,
 )
@@ -84,25 +91,62 @@ def _fused_inputs(H, b, frames, seed, device):
 
 
 def _codes():
+    medium = make_regular_ldpc_parity_check_matrix_identity(300, 150, 3, 6, 1)
     return {
-        "medium": (make_regular_ldpc_parity_check_matrix_identity(300, 150, 3, 6, 1), 7),
+        "medium": (medium, 7),
+        "medium_q3": (medium, 1),  # DecoderN450R150V3C7B1, the q-ary FER's code
         "signed_qc": (make_qary_qc_parity_check_matrix(30, 4, 2, np.random.RandomState(3)), 2),
         "toy": (TOY, 7),
     }
 
 
-@pytest.mark.parametrize("code", ["medium", "signed_qc", "toy"])
+# None: the instance fused_launch picks; else each instance (warps a block) forced
+WARPS = [None, *FUSED_WARPS]
+
+
+@pytest.mark.parametrize("code", ["medium", "medium_q3", "signed_qc", "toy"])
 @pytest.mark.parametrize("max_iter", [0, 1, 10])
-def test_fused_kernel_hard_decisions_equal_plain(cuda, code, max_iter):
+@pytest.mark.parametrize("warps", WARPS)
+def test_fused_kernel_hard_decisions_equal_plain(cuda, code, max_iter, warps):
     H, b = _codes()[code]
     llr, args = _fused_inputs(H, b, 37, 5, cuda)
     before = qary_min_sum_fused_cuda.launches
-    hard = qary_min_sum_fused_cuda(llr, *args, b, max_iter)
+    hard = qary_min_sum_fused_cuda(llr, *args, b, max_iter, warps=warps)
     ref = qary_min_sum_fused_plain(llr, *args, b, max_iter)
     torch.cuda.synchronize()
     assert qary_min_sum_fused_cuda.launches == before + 1
     assert hard.dtype == torch.int32 and hard.shape == (37, H.shape[1])
     assert torch.equal(hard, ref)
+
+
+@pytest.mark.parametrize("code", ["medium", "medium_q3", "signed_qc", "toy"])
+def test_fused_launch_configuration_on_the_card(cuda, code):
+    """The chooser's shared-memory count equals the library's for every
+    instance; the occupancy calculator holds the chosen instance's blocks
+    resident on an SM; ptxas reports every instance, at most 64 registers
+    and no spills."""
+    H, b = _codes()[code]
+    lay = QaryDecoder(H, b, 1, backend="plain", device="cpu").layout
+    q = 2 * b + 1
+    for warps in FUSED_WARPS:
+        assert qary_cuda._lib().qary_fused_smem_bytes(lay.n, lay.r, lay.dc, q, warps) == fused_smem_bytes(
+            lay.n, lay.r, lay.dc, q, warps)
+    occ = fused_occupancy(lay.n, lay.r, lay.dc, q, cuda)
+    assert occ["lib_smem_bytes"] == occ["smem_bytes"]
+    assert (occ["warps"], occ["blocks_per_sm"]) == fused_launch(lay.n, lay.r, lay.dc, q, *smem_limits(cuda))[:2]
+    assert occ["resident_blocks"] >= occ["blocks_per_sm"]
+    ptxas = fused_ptxas(6)
+    assert set(ptxas) == set(FUSED_WARPS)
+    assert all(regs <= 64 and spill == 0 for regs, spill in ptxas.values())
+
+
+def test_forced_fused_launch_is_checked(cuda):
+    H, b = _codes()["toy"]
+    llr, args = _fused_inputs(H, b, 3, 1, cuda)
+    before = qary_min_sum_fused_cuda.launches
+    with pytest.raises(ValueError, match="instances"):
+        qary_min_sum_fused_cuda(llr, *args, b, 5, warps=12)
+    assert qary_min_sum_fused_cuda.launches == before
 
 
 def test_decoder_backends_on_the_card(cuda):
