@@ -35,8 +35,13 @@ Phases (each prints one line; any failure exits non-zero):
      3 after a warm-up, success rate >= 0.999) and
      CirculantBPDecoder.decode_received on 4096 device-sampled frames;
   5. K5 (chain_exclusive_cuda) against its plain version, bitwise, at the
-     medium decoder's shapes [512, 150, 7, 15] and with an extra operand at
-     Kyber-like shapes [512, 512, 6, 5] + [512, 512, 25];
+     chain backends' shapes: the medium decoder's [512, 150, 7, 15], the
+     early-exit q-ary FER's [512, 150, 7, 3], and the Kyber chain's with the
+     extra operand, [512, 512, 6, 5] + [512, 512, 25] (eta 2) and
+     [512, 512, 6, 7] + [512, 512, 37] (eta 3), each on the instance (warps a
+     block, checks a warp) that chain_launch picks from the card's limits,
+     with its time, bound and share of it; before it, ptxas's registers and
+     spills of every K5 instance (fails above 64 registers or on a spill);
   6. K6 (qary_min_sum_fused_cuda) against the plain decode on the medium
      decoder (512 frames of Dirichlet channels, 10 iterations) and on its
      code at B = 1 (Q = 3, DecoderN450R150V3C7B1; 512 frames, 5
@@ -50,10 +55,12 @@ Phases (each prints one line; any failure exits non-zero):
      read after: simulate_frame_error_rate_qary on DecoderN450R150V3C7B1
      (seed 1, rate 0.005, 5 iterations, 4 x 4096 frames, backend "fused",
      the same triple as backend "plain" on the same device-sampled frames),
-     and QaryDecoder.min_sum_llr on the medium decoder at batch 4096 for
-     the backends fused, chain and plain (frames/s best of 3 after a
-     warm-up; every frame decodes to the all-zero word); every K6 instance
-     these launch was held against plain in phase 6;
+     the same with early_exit=True through the default backend ("chain",
+     K5 at Q = 3) against backend "plain" with early_exit=True, and
+     QaryDecoder.min_sum_llr on the medium decoder at batch 4096 for the
+     backends fused, chain and plain (frames/s best of 3 after a warm-up;
+     every frame decodes to the all-zero word); every K6 and K5 instance
+     these launch was held against plain in phase 6 or 5;
   8. K7 (qary_special_min_sum_fused_cuda) against the plain decode on
      DecoderN1280R512SW6: 512 frames of Dirichlet channels, 10 iterations,
      B and sum decisions equal on every frame, at eta = 2 and at the
@@ -70,7 +77,8 @@ Phases (each prints one line; any failure exits non-zero):
      simulate_kyber_attack (seed 7, accuracy 0.995, 2 runs) on the card,
      equal to the same call on the CPU with >= 95% of coefficients right;
      simulate_kyber_attack_adaptive (seed 0, eta = 3) with full recovery;
-     every K7 instance these launch was held against plain in phase 8;
+     every K7 and K5 instance these launch was held against plain in phase
+     8 or 5;
  10. K3 (circulant_bp_lean_cuda) against its plain version at HQC-256
      (seed 0): 256 frames at error rate 0.01, decisions, flags and
      iteration counts equal; before it, ptxas's registers and spills and
@@ -354,8 +362,8 @@ def main():
     print(f"phase 4 plain FER step at batch {CMP_FRAMES}: {CMP_FRAMES / plain_s:.1f} frames/s; "
           f"kernel fer_simulation at batch {BATCH}: {fps:.1f} frames/s {tag}")
 
-    qary = _qary_phases(dev, tag, lib_paths["qary_min_sum"])
-    kyber = _kyber_phases(dev, tag)
+    qary, k5_held = _qary_phases(dev, tag, lib_paths["qary_min_sum"])
+    kyber = _kyber_phases(dev, tag, k5_held)
     lean = _lean_phases(dev, tag, lib_paths["circulant_lean"], lay)
     _k1_sweep(dev, tag, lay)
 
@@ -389,14 +397,18 @@ def _medium_code():
 
 
 def _qary_phases(dev, tag, lib_path):
-    """Phases 5-7; returns the q-ary kernels' entries of the JSON line."""
+    """Phases 5-7; returns the q-ary kernels' entries of the JSON line and the
+    K5 instances held against plain."""
     from sca_ldpc_tpu_torch.channels import probs_to_llr
     from sca_ldpc_tpu_torch.ops import QaryDecoder, decoder_name_for
     from sca_ldpc_tpu_torch.ops import minplus
     from sca_ldpc_tpu_torch.ops.kernels.bounds import chain_bound_ms
+    from sca_ldpc_tpu_torch.ops.kernels.circulant_cuda import smem_limits
     from sca_ldpc_tpu_torch.ops.kernels.qary_cuda import (
         chain_exclusive_cuda,
         chain_exclusive_plain,
+        chain_launch,
+        chain_ptxas,
         fused_occupancy,
         fused_ptxas,
         qary_min_sum_fused_cuda,
@@ -410,7 +422,12 @@ def _qary_phases(dev, tag, lib_path):
 
     # ---- phase 5: K5 against its plain version, bitwise
     print(f"phase 5 build: {lib_path.name}; ptxas: {' | '.join(_ptxas(lib_path))}")
-    k5 = {}
+    ptxas = chain_ptxas()
+    print("phase 5 K5 instances (warps x checks a warp; 8 x 0 the per-warp form): " + " | ".join(
+        f"{w}x{k} {regs} regs/{spill} B spill" for (w, k), (regs, spill) in ptxas.items()))
+    if any(regs > 64 or spill for regs, spill in ptxas.values()):
+        raise SystemExit(f"K5: an instance above 64 registers or with spills: {ptxas}")
+    k5, k5_held = {}, set()
     dc = 7
     v2c = (rng.rand(CMP_FRAMES, 150, dc, q) * 20).astype(np.float32)
     v2c[rng.rand(*v2c.shape) < 0.1] = minplus.BIG
@@ -419,8 +436,24 @@ def _qary_phases(dev, tag, lib_path):
     se = sw * b2
     v2c2 = torch.from_numpy((rng.rand(CMP_FRAMES, 512, sw, 2 * b2 + 1) * 20).astype(np.float32)).to(dev)
     extra = torch.from_numpy((rng.rand(CMP_FRAMES, 512, 2 * se + 1) * 20).astype(np.float32)).to(dev)
+    rng5 = np.random.RandomState(4322)  # the shapes added later draw apart, so phase 6's inputs stay
+    v2c3 = (rng5.rand(CMP_FRAMES, 150, dc, 3) * 20).astype(np.float32)
+    v2c3[rng5.rand(*v2c3.shape) < 0.1] = minplus.BIG
+    v2c7 = (rng5.rand(CMP_FRAMES, 512, sw, 7) * 20).astype(np.float32)
+    v2c7[rng5.rand(*v2c7.shape) < 0.1] = minplus.BIG
+    v2c7[rng5.rand(*v2c7.shape) < 0.05] *= -1  # negative entries make the padding terms matter
+    extra7 = (rng5.rand(CMP_FRAMES, 512, 2 * sw * 3 + 1) * 20).astype(np.float32)
+    extra7[rng5.rand(*extra7.shape) < 0.05] *= -1
     for label, args in (("medium", (v2c, (dc - 1) * QB, QB)),
-                        ("extra", (v2c2, (2 * sw - 1) * b2, b2, extra))):
+                        ("Q = 3", (torch.from_numpy(v2c3).to(dev), (dc - 1) * FER_B, FER_B)),
+                        ("Kyber eta 2", (v2c2, (2 * sw - 1) * b2, b2, extra)),
+                        ("Kyber eta 3", (torch.from_numpy(v2c7).to(dev), (2 * sw - 1) * 3, 3,
+                                         torch.from_numpy(extra7).to(dev)))):
+        x, s_mid, s_out, ex = (*args, None)[:4]
+        d_, q_ = x.shape[2:]
+        we = 0 if ex is None else ex.shape[-1]
+        cfg = chain_launch(d_, q_, s_mid, s_out, we, *smem_limits(dev))
+        k5_held.add((cfg.warps, cfg.checks))
         out_k = chain_exclusive_cuda(*args)
         out_p = chain_exclusive_plain(*args)
         torch.cuda.synchronize()
@@ -428,10 +461,13 @@ def _qary_phases(dev, tag, lib_path):
         err = float((out_k - out_p).abs().max())
         ms = _ms(lambda: chain_exclusive_cuda(*args))
         plain_ms = _ms(lambda: chain_exclusive_plain(*args))
-        k5[label] = (err, ms, plain_ms, _nbytes(args[0], out_k))
-        print(f"phase 5 K5 {label} {tuple(args[0].shape)}"
-              f"{' + ' + str(tuple(extra.shape)) if label == 'extra' else ''}: kernel==plain bitwise: {same}; "
-              f"max_abs_err {err}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms {tag}")
+        bound = chain_bound_ms(x.shape[0] * x.shape[1], d_, (q_ - 1) // 2, s_mid, s_out, (we - 1) // 2 if we else 0,
+                               _nbytes(*(t for t in args if isinstance(t, torch.Tensor)), out_k))
+        k5[label] = (err, ms, plain_ms, bound)
+        print(f"phase 5 K5 {label} {tuple(x.shape)}{'' if ex is None else ' + ' + str(tuple(ex.shape))} (s_mid "
+              f"{s_mid}, s_out {s_out}): {cfg.warps} warps x {cfg.checks} checks a block, {cfg.blocks_per_sm} an SM, "
+              f"{cfg.smem_bytes} B; kernel==plain bitwise: {same}; max_abs_err {err}; kernel {ms:.3f} ms, plain "
+              f"{plain_ms:.3f} ms; bound {bound[0]:.4f} ms ({bound[1]}), kernel at {100 * bound[0] / ms:.1f}% {tag}")
         if not same:
             raise SystemExit(f"K5 {label}: kernel and plain version disagree")
     if chain_exclusive_cuda.launches <= 0:
@@ -477,6 +513,7 @@ def _qary_phases(dev, tag, lib_path):
     # ---- phase 7: path 2 through the public API
     torch.cuda.synchronize()
     chain_exclusive_cuda.launches = 0
+    chain_exclusive_cuda.instances = set()
     qary_min_sum_fused_cuda.launches = 0
     qary_min_sum_fused_cuda.instances = set()
     H1, rng1 = _medium_code()
@@ -495,6 +532,20 @@ def _qary_phases(dev, tag, lib_path):
         raise SystemExit("q-ary FER: the fused backend and the plain backend disagree on the same frames")
     if not 0 < fer[0] < runs:
         raise SystemExit(f"q-ary FER: {fer[0]} successes of {runs} is outside (0, {runs})")
+    if QaryDecoder(H, FER_B, FER_ITER, early_exit=True, device=dev).backend != "chain":
+        raise SystemExit("the early-exit q-ary decoder's default backend on the card is not the chain kernel")
+    fer_ee, ee_s = {}, {}
+    for backend in (None, "plain"):
+        H1e, rng1e = _medium_code()
+        t0 = time.perf_counter()
+        fer_ee[backend] = simulate_frame_error_rate_qary(H1e, FER_B, FER_RATE, runs, rng1e, iterations=FER_ITER,
+                                                         batch_size=BATCH, backend=backend, early_exit=True,
+                                                         device=dev)
+        ee_s[backend] = time.perf_counter() - t0
+    print(f"phase 7 q-ary FER {name} early exit: default backend (chain) {fer_ee[None]} in {ee_s[None]:.2f} s, "
+          f"plain {fer_ee['plain']} in {ee_s['plain']:.2f} s {tag}")
+    if fer_ee[None] != fer_ee["plain"]:
+        raise SystemExit("early-exit q-ary FER: the chain backend and the plain backend disagree on the same frames")
 
     channel = np.zeros((BATCH, H.shape[1], q), np.float32)
     channel[:, :, QB] = 1.0
@@ -515,26 +566,29 @@ def _qary_phases(dev, tag, lib_path):
     launches = {"chain_exclusive_cuda": chain_exclusive_cuda.launches,
                 "qary_min_sum_fused_cuda": qary_min_sum_fused_cuda.launches}
     launched = qary_min_sum_fused_cuda.instances
+    k5_launched = chain_exclusive_cuda.instances
     print(f"phase 7 launches {launches}; K6 instances launched {sorted(launched)}, held against plain in phase 6 "
-          f"{sorted(held)}")
+          f"{sorted(held)}; K5 instances launched {sorted(k5_launched)}, held in phase 5 {sorted(k5_held)}")
     if min(launches.values()) <= 0:
         raise SystemExit(f"a kernel of the q-ary path was not launched: {launches}")
     if not launched <= held:
         raise SystemExit(f"K6 instances {sorted(launched - held)} ran on the q-ary path unchecked against plain")
+    if not k5_launched <= k5_held:
+        raise SystemExit(f"K5 instances {sorted(k5_launched - k5_held)} ran on the q-ary path unchecked against plain")
 
     src = "sca_ldpc_tpu_torch/csrc/qary_min_sum.cu"
-    k5_bound = chain_bound_ms(CMP_FRAMES * 150, dc, QB, (dc - 1) * QB, QB, 0, k5["medium"][3])
     return [
         _entry("chain_exclusive_cuda", src, "sca_ldpc_tpu/ops/kernels/qary_pallas.py:104",
-               launches["chain_exclusive_cuda"], max(k5["medium"][0], k5["extra"][0]), k5["medium"][1],
-               k5["medium"][2], k5_bound),
+               launches["chain_exclusive_cuda"], max(x[0] for x in k5.values()), k5["medium"][1], k5["medium"][2],
+               k5["medium"][3]),
         _entry("qary_min_sum_fused_cuda", src, "sca_ldpc_tpu/ops/kernels/qary_pallas.py:264",
                launches["qary_min_sum_fused_cuda"], max(k6[QB][0], k6[FER_B][0]), k6[QB][1], k6[QB][2], k6[QB][3]),
-    ]
+    ], k5_held
 
 
-def _kyber_phases(dev, tag):
-    """Phases 8-9; returns K7's entry of the JSON line."""
+def _kyber_phases(dev, tag, k5_held):
+    """Phases 8-9; returns K7's entry of the JSON line.  ``k5_held``: the K5
+    instances phase 5 held against plain."""
     from sca_ldpc_tpu_torch.channels import probs_to_llr
     from sca_ldpc_tpu_torch.models.kyber import (
         gen_ldpc_matrix,
@@ -597,6 +651,7 @@ def _kyber_phases(dev, tag):
     # ---- phase 9: path 3 through the public API
     torch.cuda.synchronize()
     chain_exclusive_cuda.launches = 0
+    chain_exclusive_cuda.instances = set()
     qary_special_min_sum_fused_cuda.launches = 0
     qary_special_min_sum_fused_cuda.instances = set()
     ch_b = np.full((BATCH, n_b, 5), 0.02, np.float32)
@@ -641,12 +696,15 @@ def _kyber_phases(dev, tag):
     launches = {"qary_special_min_sum_fused_cuda": qary_special_min_sum_fused_cuda.launches,
                 "chain_exclusive_cuda": chain_exclusive_cuda.launches}
     launched = qary_special_min_sum_fused_cuda.instances
+    k5_launched = chain_exclusive_cuda.instances
     print(f"phase 9 launches {launches}; K7 instances launched {sorted(launched)}, held against plain in phase 8 "
-          f"{sorted(held)}")
+          f"{sorted(held)}; K5 instances launched {sorted(k5_launched)}, held in phase 5 {sorted(k5_held)}")
     if min(launches.values()) <= 0:
         raise SystemExit(f"a kernel of the Kyber path was not launched: {launches}")
     if not launched <= held:
         raise SystemExit(f"K7 instances {sorted(launched - held)} ran on the Kyber path unchecked against plain")
+    if not k5_launched <= k5_held:
+        raise SystemExit(f"K5 instances {sorted(k5_launched - k5_held)} ran on the Kyber path unchecked against plain")
 
     return [
         _entry("qary_special_min_sum_fused_cuda", "sca_ldpc_tpu_torch/csrc/qary_min_sum.cu",

@@ -18,17 +18,41 @@
 // channel + ((c_0 + c_1) + c_2), so its totals and hard decisions are bitwise
 // those of the plain version too.
 //
-// K5 design: one warp per (frame, check), lanes over output symbols; the
-// check's DC inputs, its prefix/suffix partial convolutions (stored at their
-// capped supports) and the extra operand live in the warp's slice of shared
-// memory (at B = 7, DC = 7: 455 floats, 1.8 KB).  Bound on the H100: at the
-// medium decoder's shapes one check update reads and writes about 63 KB per
-// frame and iteration (0.5 GB per iteration at batch 4096), about 6,800
-// add+min pairs a check, so it is bound by bytes about as much as by
-// instruction throughput; lanes idle where an output window is narrower
-// than 32.  Measured on an H100 80GB HBM3 at 700 W: 4.0 ms for
-// [4096, 150, 7, 15], 1.0e12 pairs/s, 22x the time a copy of the same bytes
-// takes: instruction-bound, each term costing two shared-memory loads.
+// K5 design: the chain of every check is independent, so a block walks groups
+// of kW warps x kK checks a warp (consecutive checks), stages the group's v2c
+// and extra rows in shared memory with coalesced loads, updates each warp's
+// checks and writes the group's outputs back with coalesced stores.  Bound
+// on the H100: instruction throughput, the add+min pairs whose indices are
+// in range (5,787 a check at the medium decoder [*, 150, 7, 15], 213 at Q = 3,
+// 1,646 at Kyber eta 2 with the extra operand); each term is two
+// shared-memory loads around its add and min.  K6's devices, on K5's caps
+// (s_pre = s_out + se, cap_of with s_mid), answer it:
+//   - Lanes.  Step t of the prefix chain and step t of the suffix chain run
+//     in one pass, a lane on each (check, chain, output); every slot's
+//     combine in passes over (check, slot, output) lanes, the slots by
+//     falling term window; with the extra operand every slot's combine output
+//     to +-s_pre is kept side by side and every slot's extra conv runs in one
+//     pass (25 serial steps for 150 at eta 2).  Where one check's passes
+//     leave lanes idle, a warp takes 2 or 4 checks (chain_group<kK>).
+//   - No bounds test.  Each chain's partials sit between kBig guards whose
+//     width the host derives from the shape (a chain step that walks the
+//     operand reads cap(t+1) + B - cap(t) past the partial, the combine
+//     s_pre + m - M past the wider one; the operands get guards only where a
+//     step walks the partial, s_mid < B), so a term whose index leaves its
+//     operand reads the kBig that conv_warp's test stands in.
+//   - The table.  Caps, offsets, guards, swaps and the slot order come from
+//     the host once per shape (qary_cuda.chain_table), by value; no
+//     partial_offset loops.
+//   - Resident warps.  Instances of 16, 8 and 4 warps a block x 1, 2 and 4
+//     checks a warp, 64 registers; the host's chain_launch() picks one from
+//     the card's limits.  A shape whose staged block does not fit (or DC >
+//     kChainMaxD) takes the per-warp form, the form before (chain_check, one
+//     warp a check, 8 a block), so every shape that fitted before fits.
+// Each output is still one min over exactly minplus.conv's terms.  Measured
+// on an H100 80GB HBM3 at 700 W (tools/qary_forms.py, against the 73cefcb
+// form in one process, batch 4096): medium decoder 3.989 -> 1.927 ms, Q = 3
+// 2.126 -> 0.269, Kyber eta 2 10.584 -> 3.808, eta 3 13.898 -> 6.350.  The
+// bounds test alone cost the old form 23-34%.
 //
 // K6 design: one block per frame runs every iteration.  v2c [R, DC, Q] (the
 // same buffer holds c2v after the check update, as the TPU kernel's VMEM
@@ -115,6 +139,27 @@
 #include <cmath>
 #include <cstdint>
 #include <cuda_runtime.h>
+
+// K5's table for one shape: ops/kernels/qary_cuda.py chain_table() makes it on the host, once per shape, and the
+// launch passes it by value; a block copies it to the head of its shared memory.  A check's chain region holds
+// its prefix chain buffer, its suffix chain buffer `suf` floats in, and with the extra operand its slots'
+// combine outputs; each chain buffer holds the partials of 0 .. d-1 operands between kBig guards.
+constexpr int kChainMaxD = 32;
+struct ChainTable {
+  int d, q, s_mid, s_out, we;  // the shape (we = 0: no extra operand)
+  int in_stride, in_guard;     // floats a staged operand takes, and its kBig guards on each side
+  int suf;                     // floats from a check's prefix chain buffer to its suffix chain buffer
+  int tmp, tmp_stride;         // extra only: the combine outputs' offset in the chain region, and a slot's floats
+  int region;                  // floats of a check's chain region
+  int wc;                      // combine outputs a slot: 2 (s_out + se) + 1
+  int cap[kChainMaxD];         // stored support of the partial of c operands
+  int off[kChainMaxD];         // its offset in a chain buffer
+  int swap[kChainMaxD];        // chain step t walks the partial (1) or the operand (0), as conv_warp's swap
+  int slot[kChainMaxD];        // the combine's slots by falling term window
+  int walk[kChainMaxD];        // that slot's walked partial, offset in the chain region
+  int terms[kChainMaxD];       // its term window
+  int read[kChainMaxD];        // its read partial's offset in the chain region, plus the conv's index offset
+};
 
 namespace {
 
@@ -336,7 +381,8 @@ __device__ void fused_check(float* m, int d, int b, const int* off, const int* o
   __syncwarp();
 }
 
-// K5: chain_exclusive over n_checks = Bt*R checks.  v2c [n_checks, d, q];
+// K5's per-warp form (the form before the Hopper redesign, kept for shapes whose staged block does not fit):
+// chain_exclusive over n_checks = Bt*R checks, one warp per check, kWarps a block.  v2c [n_checks, d, q];
 // extra [n_checks, we] or nullptr; out [n_checks, d, 2 s_out + 1].
 __global__ void __launch_bounds__(kThreads)
     chain_exclusive_kernel(const float* __restrict__ v2c, const float* __restrict__ extra, float* __restrict__ out,
@@ -702,12 +748,121 @@ __global__ void __launch_bounds__(kW * 32, 32 / kW)
   }
 }
 
-}  // namespace
-
-// Dynamic shared memory of one K5 block (kWarps checks); we = 0 without extra.
-extern "C" long long qary_chain_smem_bytes(int d, int q, int s_mid, int s_out, int we) {
-  return kWarps * chain_warp_floats(d, q, s_mid, s_out, we) * static_cast<long long>(sizeof(float));
+// K5's check update of a warp's kK checks, with chain_check's term sets: step t of the prefix chain and step t
+// of the suffix chain in one pass, a lane on each (check, chain, output); every slot's combine in passes over
+// (check, slot, output) lanes, the slots by falling term window; with the extra operand every slot's combine
+// output to +-s_pre side by side, then every slot's extra conv in one pass over (check, slot, output) lanes.
+// Every read of a partial (or of a staged operand) lies inside its kBig guards, so no term tests its index.
+// in, ex, reg, ob: the warp's first check's staged operands, extra operand, chain region and outputs.
+template <int kK>
+__device__ void chain_group(const ChainTable& t, const float* in, const float* ex, float* reg, float* ob, int lane) {
+  constexpr int kS = kK == 1 ? 0 : kK == 2 ? 1 : 2;  // log2 kK
+  const int d = t.d, q = t.q, b = (q - 1) / 2;
+  const int c_in = d * t.in_stride, w_out = 2 * t.s_out + 1, c_out = d * w_out;
+  for (int s = 0; s < d - 1; ++s) {
+    const int ct = t.cap[s], cn = t.cap[s + 1];
+    const bool swap = t.swap[s];
+    const int w = swap ? 2 * ct + 1 : q;
+    const int k0 = b + ct - cn;  // conv's index offset: the walked and read supports less the output's
+    const int o_t = t.off[s], o_n = t.off[s + 1];
+    for (int p = lane; p < (2 * cn + 1) << (kS + 1); p += 32) {
+      const int g = p & (kK - 1);
+      const int c = (p >> kS) & 1;
+      const int k = p >> (kS + 1);
+      float* part = reg + g * t.region + (c ? t.suf : 0);
+      const float* x = in + g * c_in + (c ? d - 1 - s : s) * t.in_stride + t.in_guard;
+      const float* a = swap ? part + o_t : x;
+      const float* bk = (swap ? x : part + o_t) + k0 + k;
+      part[o_n + k] = min_terms(a, w, bk);
+    }
+    __syncwarp();
+  }
+  const int wc = t.wc;
+  for (int p = lane; p < (d * wc) << kS; p += 32) {
+    const int g = p & (kK - 1);
+    const int r = p >> kS;
+    const int rank = r / wc;
+    const int k = r - rank * wc;
+    float* rg = reg + g * t.region;
+    const float v = min_terms(rg + t.walk[rank], t.terms[rank], rg + t.read[rank] + k);
+    const int j = t.slot[rank];
+    if (t.we) {
+      rg[t.tmp + j * t.tmp_stride + k] = v;
+    } else {
+      ob[g * c_out + j * w_out + k] = v;
+    }
+  }
+  __syncwarp();
+  if (t.we) {
+    // conv_warp(extra, se, se, combine_j, s_pre, s_pre, s_out) takes no operand swap (s_pre >= se): output k
+    // is the min over i < we of extra[i] + combine_j[2 se + k - i], every index inside combine_j.
+    for (int p = lane; p < c_out << kS; p += 32) {
+      const int g = p & (kK - 1);
+      const int r = p >> kS;
+      const int j = r / w_out;
+      const int k = r - j * w_out;
+      ob[g * c_out + r] = min_terms(ex + g * t.we, t.we, reg + g * t.region + t.tmp + j * t.tmp_stride + t.we - 1 + k);
+    }
+    __syncwarp();
+  }
 }
+
+// K5, staged: chain_exclusive over n_checks = Bt*R checks, kK checks a warp, kW warps a block, at most 64
+// registers a thread.  Each block walks groups of kW*kK consecutive checks: it stages the group's v2c and
+// extra rows into shared memory with coalesced loads, each warp updates its kK checks (chain_group), and the
+// block writes the group's outputs with coalesced stores.  v2c [n_checks, d, q]; extra [n_checks, we] or
+// nullptr; out [n_checks, d, 2 s_out + 1].
+template <int kW, int kK>
+__global__ void __launch_bounds__(kW * 32, 32 / kW)
+    chain_staged_kernel(const float* __restrict__ v2c, const float* __restrict__ extra, float* __restrict__ out,
+                        long long n_checks, const ChainTable table) {
+  constexpr int kC = kW * kK, kThreads = kW * 32;
+  extern __shared__ float smem[];
+  ChainTable& t = *reinterpret_cast<ChainTable*>(smem);
+  const int d = table.d, q = table.q, we = table.we, region = table.region;
+  const int c_in = d * table.in_stride, c_out = d * (2 * table.s_out + 1);
+  float* in = smem + sizeof(ChainTable) / sizeof(float);  // [kC][d][in_stride]
+  float* ex = in + kC * c_in;                              // [kC][we]
+  float* ob = ex + kC * we;                                // [kC][d][2 s_out + 1]
+  float* reg = ob + kC * c_out;                            // [kC][region]
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) t = table;
+  // the guards, once: the chain steps write only partials, the combine only its outputs
+  for (int i = threadIdx.x; i < kC * region; i += kThreads) reg[i] = kBig;
+  __syncthreads();
+  if (threadIdx.x < kC) {  // the partials of 0 operands
+    reg[threadIdx.x * region + table.off[0]] = 0.0f;
+    reg[threadIdx.x * region + table.suf + table.off[0]] = 0.0f;
+  }
+  const long long groups = (n_checks + kC - 1) / kC;
+  for (long long grp = blockIdx.x; grp < groups; grp += gridDim.x) {
+    const long long c0 = grp * kC;
+    const int nb = static_cast<int>(n_checks - c0 < kC ? n_checks - c0 : kC);
+    const float* src = v2c + c0 * d * q;
+    if (table.in_guard == 0) {
+      for (int i = threadIdx.x; i < kC * c_in; i += kThreads) in[i] = i < nb * c_in ? src[i] : 0.0f;
+    } else {
+      for (int i = threadIdx.x; i < kC * c_in; i += kThreads) {
+        const int o = i / table.in_stride;
+        const int s = i - o * table.in_stride - table.in_guard;
+        in[i] = (s < 0 || s >= q) ? kBig : o < nb * d ? src[o * q + s] : 0.0f;
+      }
+    }
+    if (extra) {
+      const float* e = extra + c0 * we;
+      for (int i = threadIdx.x; i < kC * we; i += kThreads) ex[i] = i < nb * we ? e[i] : 0.0f;
+    }
+    __syncthreads();
+    chain_group<kK>(t, in + warp * kK * c_in, ex + warp * kK * we, reg + warp * kK * region, ob + warp * kK * c_out,
+                    lane);
+    __syncthreads();
+    float* dst = out + c0 * c_out;
+    for (int i = threadIdx.x; i < nb * c_out; i += kThreads) dst[i] = ob[i];
+  }
+}
+
+}  // namespace
 
 // Dynamic shared memory of one K6 block (one frame) of `warps` warps.
 extern "C" long long qary_fused_smem_bytes(int n, int r, int dc, int q, int warps) {
@@ -733,27 +888,79 @@ FusedKernel fused_instance(int warps) {
 
 }  // namespace
 
-// K5 (replaces chain_exclusive_pallas).  v2c [n_checks, d, q] f32, extra
-// [n_checks, we] f32 or nullptr (we = 0), out [n_checks, d, 2 s_out + 1] f32.
-// Returns a cudaError_t.
-extern "C" int qary_chain_exclusive(const float* v2c, const float* extra, float* out, long long n_checks, int d,
-                                    int q, int s_mid, int s_out, int we, void* stream) {
-  if (d < 1 || q < 1 || q % 2 == 0 || s_mid < 0 || s_out < 0 || n_checks < 0 ||
-      (extra != nullptr) != (we > 0) || (we > 0 && we % 2 == 0)) {
+// K5's instances: checks a warp (1, 2 or 4) and warps a block (16, 8 or 4), staged; checks 0: the per-warp form
+// (8 warps a block).  The host's chain_launch() picks one from the card's limits.
+namespace {
+
+using ChainKernel = void (*)(const float*, const float*, float*, long long, const ChainTable);
+
+ChainKernel chain_instance(int warps, int checks) {
+  switch (warps * 8 + checks) {
+    case 16 * 8 + 1: return chain_staged_kernel<16, 1>;
+    case 8 * 8 + 1: return chain_staged_kernel<8, 1>;
+    case 4 * 8 + 1: return chain_staged_kernel<4, 1>;
+    case 16 * 8 + 2: return chain_staged_kernel<16, 2>;
+    case 8 * 8 + 2: return chain_staged_kernel<8, 2>;
+    case 4 * 8 + 2: return chain_staged_kernel<4, 2>;
+    case 16 * 8 + 4: return chain_staged_kernel<16, 4>;
+    case 8 * 8 + 4: return chain_staged_kernel<8, 4>;
+    case 4 * 8 + 4: return chain_staged_kernel<4, 4>;
+    default: return nullptr;
+  }
+}
+
+}  // namespace
+
+// Bytes of a ChainTable (the host's copy of the struct must match).
+extern "C" int qary_chain_table_bytes() { return static_cast<int>(sizeof(ChainTable)); }
+
+// Dynamic shared memory of one K5 block of the instance (warps, checks) for the shape of table t: the table,
+// then for each of its warps*checks checks the staged operands, extra operand, outputs and chain region; the
+// per-warp form (checks 0): kWarps warps' slices.
+extern "C" long long qary_chain_smem_bytes(const ChainTable* t, int warps, int checks) {
+  const long long f = sizeof(float);
+  if (checks == 0) return kWarps * chain_warp_floats(t->d, t->q, t->s_mid, t->s_out, t->we) * f;
+  const long long check = static_cast<long long>(t->d) * (t->in_stride + 2 * t->s_out + 1) + t->we + t->region;
+  return static_cast<long long>(sizeof(ChainTable)) + static_cast<long long>(warps) * checks * check * f;
+}
+
+// K5 (replaces chain_exclusive_pallas).  v2c [n_checks, d, q] f32, extra [n_checks, we] f32 or nullptr (we = 0),
+// out [n_checks, d, 2 s_out + 1] f32; t: the shape's table (chain_table()); the instance (warps, checks);
+// max_blocks: the grid's cap (the blocks resident on the card).  Returns a cudaError_t.
+extern "C" int qary_chain_exclusive(const float* v2c, const float* extra, float* out, long long n_checks,
+                                    const ChainTable* t, int warps, int checks, int max_blocks, void* stream) {
+  const int d = t->d, q = t->q, we = t->we;
+  const ChainKernel kernel = chain_instance(warps, checks);
+  if (d < 1 || q < 1 || q % 2 == 0 || t->s_mid < 0 || t->s_out < 0 || n_checks < 0 || max_blocks < 1 ||
+      (extra != nullptr) != (we > 0) || (we > 0 && we % 2 == 0) ||
+      (checks == 0 ? warps != kWarps : kernel == nullptr || d > kChainMaxD)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const long long smem = qary_chain_smem_bytes(d, q, s_mid, s_out, we);
-  if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
-  if (n_checks == 0) return 0;
-  const long long blocks = (n_checks + kWarps - 1) / kWarps;
-  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(chain_exclusive_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
+  int dev = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int warp_floats = static_cast<int>(chain_warp_floats(d, q, s_mid, s_out, we));
-  chain_exclusive_kernel<<<static_cast<unsigned>(blocks), kThreads, static_cast<size_t>(smem),
-                           static_cast<cudaStream_t>(stream)>>>(v2c, extra, out, n_checks, d, q, s_mid, s_out,
-                                                                we, warp_floats);
+  const long long smem = qary_chain_smem_bytes(t, warps, checks);
+  if (smem > optin) return static_cast<int>(cudaErrorInvalidValue);
+  if (n_checks == 0) return 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (checks == 0) {
+    const long long blocks = (n_checks + kWarps - 1) / kWarps;
+    if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+    err = cudaFuncSetAttribute(chain_exclusive_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const int warp_floats = static_cast<int>(chain_warp_floats(d, q, t->s_mid, t->s_out, we));
+    chain_exclusive_kernel<<<static_cast<unsigned>(blocks), kThreads, static_cast<size_t>(smem), s>>>(
+        v2c, extra, out, n_checks, d, q, t->s_mid, t->s_out, we, warp_floats);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const long long per_block = static_cast<long long>(warps) * checks;
+  const long long groups = (n_checks + per_block - 1) / per_block;
+  const unsigned blocks = static_cast<unsigned>(groups < max_blocks ? groups : max_blocks);
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<blocks, warps * 32, static_cast<size_t>(smem), s>>>(v2c, extra, out, n_checks, *t);
   return static_cast<int>(cudaGetLastError());
 }
 

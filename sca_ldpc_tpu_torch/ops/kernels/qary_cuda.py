@@ -5,7 +5,9 @@ Counterparts of ``sca_ldpc_tpu/ops/kernels/qary_pallas.py``:
 - :func:`chain_exclusive_cuda` (``chain_exclusive_pallas``, K5): the check
   update, the exclusive min-plus prefix/suffix chain of every check, with an
   optional per-check ``extra`` operand; bitwise equal to
-  :func:`~sca_ldpc_tpu_torch.ops.minplus.chain_exclusive`;
+  :func:`~sca_ldpc_tpu_torch.ops.minplus.chain_exclusive`; its instance
+  (warps a block, checks a warp) comes from :func:`chain_launch`, its table
+  (caps, guarded offsets, combine order) from :func:`chain_table`;
 - :func:`qary_min_sum_fused_cuda` (``qary_min_sum_fused``, K6): the whole
   fixed-iteration decode in one launch, hard decisions out; bitwise equal
   totals, so equal decisions, to the plain ``_qary_min_sum``;
@@ -51,6 +53,21 @@ SPECIAL_WARPS = (32, 16, 8)
 SPECIAL_SM_WARPS = 32
 
 
+# K5's staged instances: warps a block and checks a warp, each built with
+# __launch_bounds__(32 * warps, 32 / warps), at most 64 registers a thread;
+# a table of at most CHAIN_MAX_D slots.  CHAIN_PER_WARP_WARPS: the per-warp
+# form's block (one check a warp, no staging), kept for the shapes whose
+# staged block does not fit.
+CHAIN_WARPS = (16, 8, 4)
+CHAIN_CHECKS = (1, 2, 4)
+CHAIN_SM_WARPS = 32
+# resident warps an SM beyond which more bought K5 little (tools/qary_forms.py,
+# every instance: 16 warps of 4 checks within 2.5% of 32 warps of 2 at Q = 15)
+CHAIN_HIDE_WARPS = 16
+CHAIN_MAX_D = 32
+CHAIN_PER_WARP_WARPS = 8
+
+
 class FusedLaunch(NamedTuple):
     """Launch configuration of K6 or K7 for one code and alphabet."""
 
@@ -65,11 +82,13 @@ def _lib():
 
     lib = load("qary_min_sum")
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.qary_chain_exclusive.argtypes = [p, p, p, ll, i, i, i, i, i, p]
+    lib.qary_chain_exclusive.argtypes = [p, p, p, ll, p, i, i, i, p]
     lib.qary_chain_exclusive.restype = i
+    lib.qary_chain_table_bytes.argtypes = []
+    lib.qary_chain_table_bytes.restype = i
     lib.qary_min_sum_fused.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i, p, p]
     lib.qary_min_sum_fused.restype = i
-    lib.qary_chain_smem_bytes.argtypes = [i, i, i, i, i]
+    lib.qary_chain_smem_bytes.argtypes = [p, i, i]
     lib.qary_chain_smem_bytes.restype = ll
     lib.qary_fused_smem_bytes.argtypes = [i, i, i, i, i]
     lib.qary_fused_smem_bytes.restype = ll
@@ -255,17 +274,242 @@ def special_fused_occupancy(n_b, r, sw, b, bsum, device="cuda"):
     return _occupancy(7, cfg, _lib().qary_special_fused_smem_bytes(n_b, r, sw, b, bsum, cfg.warps), device)
 
 
+class ChainTable(NamedTuple):
+    """K5's table for one shape (the kernel's ``ChainTable``): a check's
+    staged operands, its chain region (prefix chain buffer, suffix chain
+    buffer ``suf`` floats in, then with the extra operand the slots' combine
+    outputs) and how each pass walks it.  Offsets are in floats."""
+
+    d: int
+    q: int
+    s_mid: int
+    s_out: int
+    we: int  # extra operand's width, 0 without
+    in_stride: int  # floats a staged operand takes
+    in_guard: int  # its BIG guards on each side (read by a chain step that walks the partial)
+    suf: int
+    tmp: int  # extra only: the combine outputs' offset in the chain region
+    tmp_stride: int  # extra only: a slot's floats there
+    region: int  # floats of a check's chain region
+    wc: int  # combine outputs a slot: 2 (s_out + se) + 1
+    cap: tuple  # stored support of the partial of c operands (minplus.chain_exclusive's cap)
+    off: tuple  # its offset in a chain buffer, every partial between BIG guards of ``guard`` floats
+    swap: tuple  # chain step t walks the partial (1) or the operand (0): minplus.conv's operand swap
+    slot: tuple  # the combine's slots by falling term window (ties: slot order)
+    walk: tuple  # that slot's walked partial, offset in the chain region
+    terms: tuple  # its term window
+    read: tuple  # its read partial's offset in the chain region plus the conv's index offset
+    guard: int
+
+
+class _CChainTable(ctypes.Structure):
+    _fields_ = ([(f, ctypes.c_int) for f in ChainTable._fields[:12]]
+                + [(f, ctypes.c_int * CHAIN_MAX_D) for f in ChainTable._fields[12:19]])
+
+
+class ChainLaunch(NamedTuple):
+    """Launch configuration of K5 for one shape."""
+
+    warps: int  # warps a block
+    checks: int  # checks a warp; 0: the per-warp form (one check a warp, no staging)
+    blocks_per_sm: int  # blocks resident on one SM by design
+    smem_bytes: int  # dynamic shared memory a block
+
+
+@functools.cache
+def chain_table(d, q, s_mid, s_out, we=0, checks=1):
+    """K5's table for ``chain_exclusive`` over ``d`` operands of width ``q``
+    (supports ``s_mid``, ``s_out``, an extra operand of width ``we`` or none)
+    at ``checks`` checks a warp.
+
+    Every conv of the chain reads one operand at ``k0 + k - i`` for output k
+    and walked term i (``minplus.conv``'s loop, after its operand swap).
+    Where that index leaves the operand, the term is ``a[i] + BIG``; the
+    kernel reads the same BIG from a guard.  A chain step that walks the
+    operand (width 2B+1) reads the partial of t operands up to ``cap(t+1) + B
+    - cap(t)`` outside it, one that walks the partial reads the operand up to
+    ``cap(t+1) + cap(t) - B`` outside; the combine to +-s_pre reads the
+    wider partial up to ``s_pre + m - M`` outside (m, M the two caps); the
+    extra conv never leaves its combine output.  One guard width, the
+    largest a partial needs, sits between the partials of each chain buffer.
+    The suffix buffer starts 16 banks from the prefix buffer (the two chains'
+    lanes of a pass read banks 16 apart); a slot's combine output takes a
+    stride of the output width modulo 32 (the extra pass's lanes on distinct
+    banks); with several checks a warp a check's region is 16/checks modulo
+    32 floats (the checks' lanes on distinct banks)."""
+    d, q, s_mid, s_out, we, checks = (int(x) for x in (d, q, s_mid, s_out, we, checks))
+    b = (q - 1) // 2
+    se = (we - 1) // 2 if we else 0
+    s_pre = s_out + se
+    w_out = 2 * s_out + 1
+    cap = tuple(min(c * b, s_pre + (d - 1 - c) * b, s_mid) for c in range(d))
+    swap = tuple(int(min(t * b, cap[t]) < b) for t in range(d - 1))
+    reach = [cap[t + 1] + b - cap[t] for t in range(d - 1) if not swap[t]]
+    reach += [s_pre + min(cap[j], cap[d - 1 - j]) - max(cap[j], cap[d - 1 - j]) for j in range(d)]
+    guard = max(0, *reach)
+    in_guard = max([0] + [cap[t + 1] + cap[t] - b for t in range(d - 1) if swap[t]])
+    off, f = [], guard
+    for c in range(d):
+        off.append(f)
+        f += 2 * cap[c] + 1 + guard
+    suf = f + (48 - f % 32) % 32
+    wc = 2 * s_pre + 1
+    tmp, tmp_stride = suf + f, (wc + (w_out - wc) % 32 if we else 0)
+    region = tmp + d * tmp_stride
+    if checks > 1:
+        region += (16 // checks - region) % 32
+    walk, terms, read = [], [], []
+    for j in range(d):
+        cj, cs = cap[j], cap[d - 1 - j]
+        pre, sfx = off[j], suf + off[d - 1 - j]
+        walk.append(sfx if cs < cj else pre)  # minplus.conv walks the narrower partial
+        read.append((pre if cs < cj else sfx) + cj + cs - s_pre)
+        terms.append(2 * min(cj, cs) + 1)
+    slot = tuple(sorted(range(d), key=lambda j: (-terms[j], j)))
+    return ChainTable(d, q, s_mid, s_out, we, q + 2 * in_guard, in_guard, suf, tmp, tmp_stride, region, wc, cap,
+                      tuple(off), swap, slot, tuple(walk[j] for j in slot), tuple(terms[j] for j in slot),
+                      tuple(read[j] for j in slot), guard)
+
+
+def chain_warp_floats(d, q, s_mid, s_out, we=0):
+    """Floats of one warp's slice in K5's per-warp form (the kernel's
+    chain_warp_floats): the check's operands, its extra operand, both chains'
+    capped partials back to back and one combine output."""
+    t = chain_table(d, q, s_mid, s_out, we)
+    f = d * q + 2 * sum(2 * c + 1 for c in t.cap)
+    return f + (we + t.wc if we else 0)
+
+
+CHAIN_TABLE_BYTES = ctypes.sizeof(_CChainTable)
+
+
+def chain_smem_bytes(d, q, s_mid, s_out, we, warps, checks):
+    """Dynamic shared memory of one K5 block of the instance (``warps``,
+    ``checks``): the table, then each check's staged operands, extra operand,
+    outputs and chain region; ``checks`` 0: the per-warp form's
+    CHAIN_PER_WARP_WARPS slices.  A Python copy of the kernel's
+    ``qary_chain_smem_bytes``, so that the chooser runs without the library;
+    the card test ``test_chain_launch_configuration_on_the_card`` holds the
+    two equal."""
+    if checks == 0:
+        return 4 * warps * chain_warp_floats(d, q, s_mid, s_out, we)
+    t = chain_table(d, q, s_mid, s_out, we, checks)
+    return CHAIN_TABLE_BYTES + 4 * warps * checks * (d * (t.in_stride + 2 * s_out + 1) + we + t.region)
+
+
+def chain_steps(d, q, s_mid, s_out, we, checks):
+    """Serial term steps of a warp's ``checks`` checks in K5's staged form,
+    per check: each pass of 32 lanes takes as many steps as its widest term
+    window (chain steps, the combine by falling window, the extra pass)."""
+    t = chain_table(d, q, s_mid, s_out, we, checks)
+    steps = 0
+    for s in range(d - 1):
+        items = 2 * checks * (2 * t.cap[s + 1] + 1)
+        steps += -(-items // 32) * (2 * t.cap[s] + 1 if t.swap[s] else q)
+    # a combine pass's widest window is its first item's: the slots come by falling window
+    steps += sum(t.terms[p // checks // t.wc] for p in range(0, checks * d * t.wc, 32))
+    if we:
+        steps += -(-checks * d * (2 * s_out + 1) // 32) * we
+    return steps / checks
+
+
+def chain_instance(d, q, s_mid, s_out, we, warps, checks, smem_block, smem_sm):
+    """The ChainLaunch of K5's instance (``warps``, ``checks``) for a shape,
+    or None where its block does not fit ``smem_block``; blocks an SM by
+    shared memory (with what CUDA reserves for each block: the SM's shared
+    memory less what one block may opt in to) and by registers
+    (:data:`CHAIN_SM_WARPS` for the staged instances; the per-warp form's
+    64 warps an SM at most)."""
+    smem = chain_smem_bytes(d, q, s_mid, s_out, we, warps, checks)
+    if smem > smem_block:
+        return None
+    sm_warps = CHAIN_SM_WARPS if checks else 64
+    return ChainLaunch(warps, checks, min(smem_sm // (smem + smem_sm - smem_block), sm_warps // warps), smem)
+
+
+@functools.cache
+def chain_launch(d, q, s_mid, s_out, we, smem_block, smem_sm):
+    """K5's launch configuration for ``chain_exclusive`` over ``d`` operands
+    of width ``q`` (supports ``s_mid``, ``s_out``, extra width ``we`` or 0)
+    on a device with the shared-memory limits ``smem_block`` and ``smem_sm``
+    (:func:`~sca_ldpc_tpu_torch.ops.kernels.circulant_cuda.smem_limits`).
+
+    Of the staged instances (:data:`CHAIN_WARPS` x :data:`CHAIN_CHECKS`)
+    whose block fits: those whose blocks hold at least
+    :data:`CHAIN_HIDE_WARPS` warps an SM (or the most, where none does), by
+    shared memory and registers (:func:`chain_instance`); among them the
+    fewest serial term steps a check (:func:`chain_steps`: several checks
+    share a warp where one check's passes leave lanes idle), then the most
+    warps an SM, then the smallest block.  Where no staged block fits (or d >
+    CHAIN_MAX_D), the per-warp form, which fits wherever the form before the
+    redesign did (it is that form).  Raises ValueError when not even that
+    fits.  On the H100 (NVIDIA H100 80GB HBM3, 700.00 W;
+    ``tools/qary_forms.py``, one call, batch 4096): 4 warps x 4 checks at Q =
+    15 (1.927 ms; 1.844 the best instance, 16 x 2), Q = 3 (0.269, the best
+    within 0.5%) and Kyber eta 2 (3.808, the best), 4 x 2 at eta 3 (6.350,
+    the best; 6.858 the best of one check a warp, 32 warps an SM)."""
+    best, best_key = None, None
+    for checks in CHAIN_CHECKS if d <= CHAIN_MAX_D else ():
+        steps = chain_steps(d, q, s_mid, s_out, we, checks)
+        for warps in CHAIN_WARPS:
+            cfg = chain_instance(d, q, s_mid, s_out, we, warps, checks, smem_block, smem_sm)
+            if cfg is None:
+                continue
+            sm_warps = cfg.warps * cfg.blocks_per_sm
+            key = (-min(sm_warps, CHAIN_HIDE_WARPS), steps, -sm_warps, warps)
+            if best is None or key < best_key:
+                best, best_key = cfg, key
+    best = best or chain_instance(d, q, s_mid, s_out, we, CHAIN_PER_WARP_WARPS, 0, smem_block, smem_sm)
+    if best is None:
+        smem = chain_smem_bytes(d, q, s_mid, s_out, we, CHAIN_PER_WARP_WARPS, 0)
+        raise ValueError(
+            f"chain_exclusive_cuda: DC={d}, Q={q}, s_mid={s_mid}, s_out={s_out}, We={we} need {smem} B of shared "
+            f"memory per block of {CHAIN_PER_WARP_WARPS} checks; the bound is {smem_block} B")
+    return best
+
+
+@functools.cache
+def _c_table(d, q, s_mid, s_out, we, checks):
+    """:func:`chain_table` as the kernel's struct (the per-warp form reads
+    only its shape)."""
+    t = chain_table(d, q, s_mid, s_out, we, max(checks, 1))
+    c = _CChainTable(*t[:12])
+    if d <= CHAIN_MAX_D:
+        for f in ChainTable._fields[12:19]:
+            getattr(c, f)[:len(getattr(t, f))] = getattr(t, f)
+    return c
+
+
+def chain_ptxas():
+    """ptxas's ``-v`` report on K5's instances of the built library:
+    {(warps, checks): (registers, spill bytes stored and loaded)} a thread,
+    (8, 0) the per-warp form.  Builds the library if needed (needs nvcc)."""
+    from ._build import build
+
+    path = build("qary_min_sum")
+    staged = _ptxas_report(path, r"chain_staged_kernelILi(\d+)ELi(\d+)EE", lambda m: (int(m[1]), int(m[2])))
+    return {**staged, **_ptxas_report(path, r"chain_exclusive_kernel", lambda m: (CHAIN_PER_WARP_WARPS, 0))}
+
+
+@functools.cache
+def _sm_count(device):
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def chain_exclusive_plain(v2c, s_mid, s_out, extra=None):
     """Plain PyTorch version of :func:`chain_exclusive_cuda`, on any device."""
     return chain_exclusive(v2c, s_mid, extra=extra, s_out=s_out)
 
 
-def chain_exclusive_cuda(v2c, s_mid, s_out, extra=None):
+def chain_exclusive_cuda(v2c, s_mid, s_out, extra=None, instance=None):
     """``minplus.chain_exclusive(v2c, s_mid, extra, s_out)``, as the JAX
     package's ``chain_exclusive_pallas(v2c, s_mid, s_out, extra)``.
 
     v2c: [Bt, R, DC, Q] float32, Q odd; extra: [Bt, R, We] float32, We odd,
-    or None.  Returns [Bt, R, DC, 2*s_out+1] float32.
+    or None.  Returns [Bt, R, DC, 2*s_out+1] float32.  ``instance`` (for
+    tests) forces (warps, checks) of :data:`CHAIN_WARPS` x
+    :data:`CHAIN_CHECKS`, or (CHAIN_PER_WARP_WARPS, 0), in place of
+    :func:`chain_launch`'s choice.
     """
     device = v2c.device
     if v2c.ndim != 4:
@@ -287,26 +531,34 @@ def chain_exclusive_cuda(v2c, s_mid, s_out, extra=None):
         return chain_exclusive_plain(v2c, s_mid, s_out, extra)
 
     stream = _cuda_stream(device)
-    smem, smem_block = _lib().qary_chain_smem_bytes(dc, q, s_mid, s_out, we), smem_limits(device)[0]
-    if smem > smem_block:
-        raise ValueError(
-            f"chain_exclusive_cuda: DC={dc}, Q={q}, s_mid={s_mid}, s_out={s_out}, We={we} need "
-            f"{smem} B of shared memory per block of 8 checks; the bound is {smem_block} B"
-        )
+    smem_block, smem_sm = smem_limits(device)
+    if instance is None:
+        cfg = chain_launch(dc, q, s_mid, s_out, we, smem_block, smem_sm)
+    else:
+        warps, checks = instance
+        if not ((warps in CHAIN_WARPS and checks in CHAIN_CHECKS and dc <= CHAIN_MAX_D)
+                or (warps, checks) == (CHAIN_PER_WARP_WARPS, 0)):
+            raise ValueError(f"instance={instance} is not one of K5's instances")
+        cfg = chain_instance(dc, q, s_mid, s_out, we, warps, checks, smem_block, smem_sm)
+        if cfg is None:
+            raise ValueError(f"instance={instance}: a block does not fit the card's shared memory")
     with torch.cuda.device(device):
         out = torch.empty((bt, r, dc, 2 * s_out + 1), dtype=torch.float32, device=device)
         if bt * r:
+            max_blocks = _sm_count(device) * max(cfg.blocks_per_sm, 1)
             rc = _lib().qary_chain_exclusive(
-                v2c.data_ptr(), extra.data_ptr() if extra is not None else None, out.data_ptr(),
-                bt * r, dc, q, s_mid, s_out, we, stream,
+                v2c.data_ptr(), extra.data_ptr() if extra is not None else None, out.data_ptr(), bt * r,
+                ctypes.byref(_c_table(dc, q, s_mid, s_out, we, cfg.checks)), cfg.warps, cfg.checks, max_blocks, stream,
             )
             if rc != 0:
                 raise RuntimeError(f"qary_chain_exclusive launch failed: CUDA error {rc}")
             chain_exclusive_cuda.launches += 1
+            chain_exclusive_cuda.instances.add((cfg.warps, cfg.checks))
     return out
 
 
 chain_exclusive_cuda.launches = 0
+chain_exclusive_cuda.instances = set()  # the instances (warps, checks) launched
 
 
 def qary_min_sum_fused_plain(channel, chk_var, chk_sign, chk_mask, var_flat, b_range, max_iter):

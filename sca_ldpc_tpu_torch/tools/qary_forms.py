@@ -1,21 +1,33 @@
-"""Time the port's q-ary decode kernels K6 (``qary_min_sum.cu``'s
-``qary_min_sum_fused``) and K7 (``qary_special_min_sum_fused``, the Kyber
-decode) against their forms before the Hopper redesigns, on one NVIDIA GPU,
-in one process.
+"""Time the port's q-ary kernels K5 (``qary_min_sum.cu``'s
+``qary_chain_exclusive``, the check update), K6 (``qary_min_sum_fused``) and
+K7 (``qary_special_min_sum_fused``, the Kyber decode) against their forms
+before the Hopper redesigns, on one NVIDIA GPU, in one process.
 
 The earlier sources are ``sca_ldpc_tpu_torch/csrc/qary_min_sum.cu`` as of
-commit 75ccc0c for K6 and as of commit f75bded for K7; in each, the kernel's
-entry point takes no launch configuration (8 warps a block, one instance).
-Write them into the git-ignored ``build/`` from a checkout with history, then
-run the script (the card's machine needs no git):
+commit 73cefcb for K5, 75ccc0c for K6 and f75bded for K7; in each, the
+kernel's entry point takes no launch configuration (8 warps a block, one
+instance).  Write them into the git-ignored ``build/`` from a checkout with
+history, then run the script (the card's machine needs no git):
 
-    mkdir -p build/qary_old build/qary_old_k6
+    mkdir -p build/qary_old build/qary_old_k6 build/qary_old_k5
     git show f75bded:sca_ldpc_tpu_torch/csrc/qary_min_sum.cu > build/qary_old/qary_min_sum.cu
     git show 75ccc0c:sca_ldpc_tpu_torch/csrc/qary_min_sum.cu > build/qary_old_k6/qary_min_sum.cu
+    git show 73cefcb:sca_ldpc_tpu_torch/csrc/qary_min_sum.cu > build/qary_old_k5/qary_min_sum.cu
     python3 -m sca_ldpc_tpu_torch.tools.qary_forms --out build/qary_forms.json
 
-``--kernels k6`` or ``--kernels k7`` runs one part.  Each earlier source is
+``--kernels k5``, ``k6`` or ``k7`` runs some parts.  Each earlier source is
 compiled with the package's nvcc flags beside the current one.
+
+K5's cells (``K5_CELLS``) are its calls on the chain backends' paths: the
+medium decoder's check update [Bt, 150, 7, 15] (s_mid 42, s_out 7) on
+``chip_smoke.py`` phase 5's 512 frames and at batch 4096, the early-exit q-ary
+FER's [4096, 150, 7, 3] (6, 1), and the Kyber-768 chain's [4096, 512, 6, 5] +
+extra [4096, 512, 25] (22, 2) and [4096, 512, 6, 7] + [4096, 512, 37] (33,
+3): operands uniform in [0, 20) with 10% BIG, in the extra cells 5% of the
+operands and extra entries negated too (which makes the padding terms
+matter).  For each: outputs bit-equal between the forms and to the plain
+version, both timed in turns, and every instance (warps a block, checks a
+warp) whose block fits, each bit-equal to the chosen one.
 
 K6's cells are the medium decoder
 (``make_regular_ldpc_parity_check_matrix_identity(300, 150, 3, 6, seed 1)``,
@@ -38,12 +50,13 @@ chosen one.  Both forms are called through their C entry points (the
 wrapper's argument checks, about 0.2 ms a call with a host sync, are timed
 by ``chip_smoke.py``).
 
-``--variant PATH`` (repeatable) also compiles an edited copy of either
+``--variant PATH`` (repeatable) also compiles an edited copy of any
 source (a K6 that takes a warp count has ``qary_fused_occupancy``, a K7
-that takes one has it or ``qary_special_fused_occupancy``), says on each
-cell whether its decisions equal the current kernel's, and times it; a copy
-with the current interface runs at every instance whose block, by the
-copy's own count of shared memory, fits.  The
+that takes one has it or ``qary_special_fused_occupancy``, a K5 that takes
+an instance has ``qary_chain_table_bytes``), says on each cell whether its
+outputs equal the current kernel's, and times it; a copy with the current
+interface runs at every instance whose block, by the copy's own count of
+shared memory, fits.  The
 way to read what bounds the kernel (an edited copy gives wrong decisions and
 only its time is read) or to try a tuning before it replaces the source.
 
@@ -72,8 +85,16 @@ from ..ops.kernels.bounds import chain_bound_ms
 from ..ops.kernels.circulant_cuda import smem_limits
 from ..ops.kernels import qary_cuda
 from ..ops.kernels.qary_cuda import (
+    CHAIN_CHECKS,
+    CHAIN_PER_WARP_WARPS,
+    CHAIN_WARPS,
     FUSED_WARPS,
     SPECIAL_WARPS,
+    _c_table,
+    chain_exclusive_plain,
+    chain_instance,
+    chain_launch,
+    chain_ptxas,
     fused_launch,
     fused_ptxas,
     special_fused_launch,
@@ -89,6 +110,11 @@ K6_SMOKE_SEED, FER_RATE = 4321, 0.005
 # (cell, B, iterations, frames); the 512-frame cell is chip_smoke.py phase 6's inputs
 K6_CELLS = (("medium decoder, 512 frames", 7, 10, 512), ("medium decoder, batch 4096", 7, 10, 4096),
             ("Q = 3, batch 4096", 1, 5, 4096))
+# (cell, v2c shape, s_mid, s_out, extra width or 0); the first is chip_smoke.py phase 5's inputs
+K5_CELLS = (("medium, phase 5's", (512, 150, 7, 15), 42, 7, 0), ("medium, batch 4096", (4096, 150, 7, 15), 42, 7, 0),
+            ("Q = 3, batch 4096", (4096, 150, 7, 3), 6, 1, 0),
+            ("Kyber eta 2, batch 4096", (4096, 512, 6, 5), 22, 2, 25),
+            ("Kyber eta 3, batch 4096", (4096, 512, 6, 7), 33, 3, 37))
 
 
 class _Cell(NamedTuple):
@@ -216,6 +242,107 @@ def _k7_cells(dev):
                         frames * r * ITERS, SW, eta, (2 * SW - 1) * eta, eta, bsum, nbytes))
 
 
+class _K5Lib:
+    """A built source's K5: its entry point, and whether it has the current
+    interface (a table and an instance) with its own count of a block's
+    shared memory."""
+
+    def __init__(self, lib, log):
+        self.log = log
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        self.current = hasattr(lib, "qary_chain_table_bytes")
+        self.fn = lib.qary_chain_exclusive
+        self.fn.argtypes = [p, p, p, ll, p, i, i, i, p] if self.current else [p, p, p, ll, i, i, i, i, i, p]
+        self.fn.restype = i
+        if self.current:
+            self.smem = lib.qary_chain_smem_bytes
+            self.smem.argtypes = [p, i, i]
+            self.smem.restype = ll
+
+    def instances(self, cell):
+        """The instances whose block fits the card by this source's own count
+        (None: the earlier form's one launch)."""
+        if not self.current:
+            return [None]
+        smem_block = smem_limits(cell["v2c"].device)[0]
+        shape = cell["shape"]
+        return [(w, k) for k in CHAIN_CHECKS for w in CHAIN_WARPS if self.smem(ctypes.byref(_c_table(*shape, k)), w, k)
+                <= smem_block] + [(CHAIN_PER_WARP_WARPS, 0)]
+
+    def __call__(self, cell, instance=None):
+        v2c, extra = cell["v2c"], cell["extra"]
+        d, q, s_mid, s_out, we = cell["shape"]
+        out = torch.empty(v2c.shape[:3] + (2 * s_out + 1,), dtype=torch.float32, device=v2c.device)
+        n = v2c.shape[0] * v2c.shape[1]
+        ptrs = (v2c.data_ptr(), extra.data_ptr() if extra is not None else None, out.data_ptr(), n)
+        if self.current:
+            warps, checks = instance or tuple(cell["cfg"][:2])
+            cfg = chain_instance(d, q, s_mid, s_out, we, warps, checks, *smem_limits(v2c.device))
+            blocks = torch.cuda.get_device_properties(v2c.device).multi_processor_count * max(cfg.blocks_per_sm, 1)
+            rc = self.fn(*ptrs, ctypes.byref(_c_table(d, q, s_mid, s_out, we, checks)), warps, checks, blocks,
+                         torch.cuda.current_stream().cuda_stream)
+        else:
+            rc = self.fn(*ptrs, d, q, s_mid, s_out, we, torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"K5 (instance {instance}) failed: CUDA error {rc}")
+        return out
+
+
+def _k5_cells(dev):
+    """K5's cells, one at a time (each frees the one before)."""
+    for name, shape, s_mid, s_out, we in K5_CELLS:
+        bt, r, d, q = shape
+        rng = np.random.RandomState(K6_SMOKE_SEED if bt == 512 else bt + q)
+        v2c = (rng.rand(*shape) * 20).astype(np.float32)
+        v2c[rng.rand(*shape) < 0.1] = minplus.BIG
+        extra = None
+        if we:
+            v2c[rng.rand(*shape) < 0.05] *= -1
+            extra = (rng.rand(bt, r, we) * 20).astype(np.float32)
+            extra[rng.rand(*extra.shape) < 0.05] *= -1
+            extra = torch.from_numpy(extra).to(dev)
+        key = (d, q, s_mid, s_out, we)
+        yield {"name": name, "v2c": torch.from_numpy(v2c).to(dev), "extra": extra, "shape": key,
+               "cfg": chain_launch(*key, *smem_limits(dev)),
+               "bound": lambda nbytes, n=bt * r, key=key: chain_bound_ms(n, key[0], (key[1] - 1) // 2, key[2], key[3],
+                                                                        (key[4] - 1) // 2 if key[4] else 0, nbytes)}
+
+
+def _bits_equal(a, b):
+    return a.shape == b.shape and torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def _run_k5(cell, old, new, variants, card):
+    """Both forms of K5, the current one's instances and the variants on one cell."""
+    v2c, extra, (d, q, s_mid, s_out, we) = cell["v2c"], cell["extra"], cell["shape"]
+    out_n = new(cell)
+    same = _bits_equal(out_n, old(cell))
+    plain = _bits_equal(out_n, chain_exclusive_plain(v2c, s_mid, s_out, extra))
+    torch.cuda.synchronize()
+    bound, bound_by = cell["bound"](sum(x.numel() * x.element_size() for x in (v2c, extra, out_n) if x is not None))
+    turns, t_old, t_new = _turns(lambda: old(cell), lambda: new(cell))
+    instances = {f"{w}x{k}": {"equal": _bits_equal(new(cell, (w, k)), out_n), "ms": _ms(lambda: new(cell, (w, k)))}
+                 for w, k in new.instances(cell)}
+    cfg = cell["cfg"]
+    res = {"kernel": "K5", "cell": cell["name"], "v2c": list(v2c.shape), "extra": None if extra is None else
+           list(extra.shape), "s_mid": s_mid, "s_out": s_out, "launch": cfg._asdict(), "outputs_equal": same,
+           "equal_to_plain": plain, "turns_ms": turns, "old_ms": t_old, "new_ms": t_new, "speedup": t_old / t_new,
+           "bound_ms": bound, "bound_by": bound_by, "new_share_of_bound": bound / t_new,
+           "old_share_of_bound": bound / t_old, "instances": instances, "variants": {}}
+    print(f"K5 {cell['name']} {list(v2c.shape)}{'' if extra is None else ' + ' + str(list(extra.shape))}: outputs "
+          f"equal {same}, equal to plain {plain}; old {t_old:.3f} ms, new {t_new:.3f} ms ({res['speedup']:.2f}x) at "
+          f"{cfg.warps} warps x {cfg.checks} checks a block, {cfg.blocks_per_sm} an SM ({cfg.smem_bytes} B); bound "
+          f"{bound:.4f} ms ({bound_by}), old at {100 * bound / t_old:.1f}%, new at {100 * bound / t_new:.1f}% [{card}]")
+    print("  instances (warps x checks: ms, equal): " + " | ".join(
+        f"{k} {v['ms']:.3f} {v['equal']}" for k, v in instances.items()))
+    for label, lib in variants:
+        v = {"-" if w is None else f"{w[0]}x{w[1]}": {"equal": _bits_equal(lib(cell, w), out_n),
+                                                      "ms": _ms(lambda: lib(cell, w))} for w in lib.instances(cell)}
+        res["variants"][label] = v
+        print(f"  variant {label}: " + " | ".join(f"{k} {x['ms']:.3f} ms, equal {x['equal']}" for k, x in v.items()))
+    return res
+
+
 def _run(cell, old, new, variants, card):
     """Both forms, the current one's instances and the variants on one cell."""
     cfg, iters = cell.cfg, cell.meta["iterations"]
@@ -269,10 +396,12 @@ def _same(x, y):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--kernels", nargs="+", choices=("k6", "k7"), default=["k6", "k7"])
+    ap.add_argument("--kernels", nargs="+", choices=("k5", "k6", "k7"), default=["k5", "k6", "k7"])
     ap.add_argument("--old", default="build/qary_old/qary_min_sum.cu", help="K7's earlier qary_min_sum.cu (f75bded)")
     ap.add_argument("--old-k6", default="build/qary_old_k6/qary_min_sum.cu",
                     help="K6's earlier qary_min_sum.cu (75ccc0c)")
+    ap.add_argument("--old-k5", default="build/qary_old_k5/qary_min_sum.cu",
+                    help="K5's earlier qary_min_sum.cu (73cefcb)")
     ap.add_argument("--variant", action="append", default=[], metavar="PATH",
                     help="an edited copy of any of the sources, timed beside the current kernels")
     ap.add_argument("--out", default="build/qary_forms.json")
@@ -280,8 +409,8 @@ def main():
     if not torch.cuda.is_available():
         print("qary_forms: no CUDA device", file=sys.stderr)
         return 1
-    olds = {"k6": args.old_k6, "k7": args.old}
-    kernels = [k for k in ("k6", "k7") if k in args.kernels]
+    olds = {"k5": args.old_k5, "k6": args.old_k6, "k7": args.old}
+    kernels = [k for k in ("k5", "k6", "k7") if k in args.kernels]
     missing = [olds[k] for k in kernels if not Path(olds[k]).is_file()]
     if missing:
         print(f"qary_forms: no earlier source at {missing}; write it with git show (see the module's docstring)",
@@ -303,11 +432,15 @@ def main():
     for k, (_, log) in old.items():
         out.with_name(f"{out.stem}_ptxas_old_{k}.log").write_text(log)
         print(f"ptxas old {k}:", " | ".join(_ptxas(log)))
+    print("ptxas new K5 {(warps, checks): (registers, spill bytes)}:", chain_ptxas())
     for kernel in (6, 7):
         print(f"ptxas new K{kernel} {{warps a block: (registers, spill bytes)}}:", fused_ptxas(kernel))
     for label, (_, log) in variants:
         print(f"ptxas variant {label}:", " | ".join(_ptxas(log)))
     cells = []
+    if "k5" in old:
+        libs = [(label, _K5Lib(*c)) for label, c in variants]
+        cells += [_run_k5(cell, _K5Lib(*old["k5"]), _K5Lib(*new), libs, card) for cell in _k5_cells(dev)]
     for k, kernel, make in (("k6", 6, _k6_cells), ("k7", 7, _k7_cells)):
         if k in old:
             libs = [(label, _Lib(kernel, *c)) for label, c in variants]
@@ -316,7 +449,8 @@ def main():
     out.write_text(json.dumps(results, indent=1))
     print(f"wrote {out}")
     bad = [f"{c['kernel']} {c['cell']}" for c in cells
-           if not c["decisions_equal"] or not all(v["equal"] for v in c["instances"].values())]
+           if not c.get("decisions_equal", c.get("outputs_equal")) or not c.get("equal_to_plain", True)
+           or not all(v["equal"] for v in c["instances"].values())]
     if bad:
         print(f"qary_forms: the forms or the instances disagree in {bad}", file=sys.stderr)
     return 1 if bad else 0

@@ -1,10 +1,12 @@
 """The CUDA q-ary kernels (K5 chain_exclusive_cuda, K6 qary_min_sum_fused_cuda)
-against their plain PyTorch versions, on the card.  Without a CUDA device
+against their plain PyTorch versions, on the card (K5 at every instance).  Without a CUDA device
 every test skips.  This file imports no JAX, so it runs on a machine without
 it:
 
     python -m pytest --noconftest tests/test_torch_cuda_qary.py
 """
+
+import ctypes
 
 import numpy as np
 import pytest
@@ -19,9 +21,18 @@ from sca_ldpc_tpu_torch.ops import QaryDecoder, minplus
 from sca_ldpc_tpu_torch.ops.kernels import qary_cuda
 from sca_ldpc_tpu_torch.ops.kernels.circulant_cuda import smem_limits
 from sca_ldpc_tpu_torch.ops.kernels.qary_cuda import (
+    CHAIN_CHECKS,
+    CHAIN_PER_WARP_WARPS,
+    CHAIN_TABLE_BYTES,
+    CHAIN_WARPS,
     FUSED_WARPS,
+    _c_table,
     chain_exclusive_cuda,
     chain_exclusive_plain,
+    chain_instance,
+    chain_launch,
+    chain_ptxas,
+    chain_smem_bytes,
     fused_launch,
     fused_occupancy,
     fused_ptxas,
@@ -79,6 +90,83 @@ def test_chain_kernel_with_extra_bitwise_equals_plain(cuda, bt):
         ref = chain_exclusive_plain(v2c, (2 * sw - 1) * b, s_out, extra)
         torch.cuda.synchronize()
         assert out.shape == (bt, 10, sw, 2 * s_out + 1) and torch.equal(_bits(out), _bits(ref))
+
+
+# (v2c shape, s_mid, s_out, extra width): the medium decoder's check update, the early-exit FER's at Q = 3, the
+# Kyber chain at eta 2 and 3 (and s_out = B + 1), and a shape whose chain steps walk the partial (s_mid < B)
+CHAIN_SHAPES = [((7, 13, 7, 15), 42, 7, 0), ((7, 13, 7, 3), 6, 1, 0), ((5, 13, 6, 5), 22, 2, 25),
+                ((5, 13, 6, 7), 33, 3, 37), ((5, 13, 6, 5), 22, 3, 25), ((7, 13, 3, 9), 3, 4, 0)]
+
+
+def _instances(shape, s_mid, s_out, we, device):
+    d, q = shape[2:]
+    limits = smem_limits(device)
+    staged = [(w, k) for k in CHAIN_CHECKS for w in CHAIN_WARPS
+              if chain_instance(d, q, s_mid, s_out, we, w, k, *limits)]
+    return staged + [(CHAIN_PER_WARP_WARPS, 0)]
+
+
+@pytest.mark.parametrize("shape,s_mid,s_out,we", CHAIN_SHAPES)
+def test_chain_kernel_every_instance_bitwise_equals_plain(cuda, shape, s_mid, s_out, we):
+    """91 checks, which no instance's block of 8 to 64 checks divides; each
+    instance forced, and the chosen one, bitwise equal to plain."""
+    v2c = _v2c(*shape, sum(shape) + we, cuda)
+    extra = None
+    if we:
+        rng = np.random.RandomState(we)
+        e = (rng.rand(*shape[:2], we) * 20).astype(np.float32)
+        e[rng.rand(*e.shape) < 0.1] = minplus.BIG
+        e[rng.rand(*e.shape) < 0.05] *= -1
+        extra = torch.from_numpy(e).to(cuda)
+    ref = chain_exclusive_plain(v2c, s_mid, s_out, extra)
+    chosen = chain_launch(shape[2], shape[3], s_mid, s_out, we, *smem_limits(cuda))
+    for instance in [None, *_instances(shape, s_mid, s_out, we, cuda)]:
+        before = chain_exclusive_cuda.launches
+        out = chain_exclusive_cuda(v2c, s_mid, s_out, extra, instance=instance)
+        torch.cuda.synchronize()
+        assert chain_exclusive_cuda.launches == before + 1
+        assert out.shape == ref.shape and torch.equal(_bits(out), _bits(ref)), instance
+    assert (chosen.warps, chosen.checks) in chain_exclusive_cuda.instances
+
+
+@pytest.mark.parametrize("shape,s_mid,s_out,we", CHAIN_SHAPES)
+def test_chain_launch_configuration_on_the_card(cuda, shape, s_mid, s_out, we):
+    """The host's copy of the kernel's table struct has its size; the
+    chooser's shared-memory count equals the library's for every instance;
+    ptxas reports every instance, at most 64 registers and no spills for the
+    staged ones."""
+    d, q = shape[2:]
+    lib = qary_cuda._lib()
+    assert lib.qary_chain_table_bytes() == CHAIN_TABLE_BYTES
+    for w, k in [(w, k) for k in CHAIN_CHECKS for w in CHAIN_WARPS] + [(CHAIN_PER_WARP_WARPS, 0)]:
+        assert lib.qary_chain_smem_bytes(ctypes.byref(_c_table(d, q, s_mid, s_out, we, k)), w, k) == chain_smem_bytes(
+            d, q, s_mid, s_out, we, w, k)
+    ptxas = chain_ptxas()
+    assert set(ptxas) == {(w, k) for w in CHAIN_WARPS for k in CHAIN_CHECKS} | {(CHAIN_PER_WARP_WARPS, 0)}
+    assert all(regs <= 64 and spill == 0 for (w, k), (regs, spill) in ptxas.items() if k)
+
+
+def test_forced_chain_instance_is_checked(cuda):
+    v2c = _v2c(2, 3, 7, 15, 0, cuda)
+    before = chain_exclusive_cuda.launches
+    with pytest.raises(ValueError, match="instances"):
+        chain_exclusive_cuda(v2c, 42, 7, instance=(12, 1))
+    with pytest.raises(ValueError, match="instances"):
+        chain_exclusive_cuda(_v2c(1, 2, 40, 3, 0, cuda), 39, 1, instance=(8, 1))  # DC above the table's
+    assert chain_exclusive_cuda.launches == before
+    out = chain_exclusive_cuda(_v2c(1, 2, 40, 3, 0, cuda), 39, 1)  # the per-warp form takes it
+    assert (CHAIN_PER_WARP_WARPS, 0) in chain_exclusive_cuda.instances and out.shape == (1, 2, 40, 3)
+
+
+def test_fer_early_exit_chain_equals_plain_on_the_same_frames(cuda):
+    """The early-exit q-ary FER takes "chain" by default (K5 at Q = 3) and
+    gives the plain backend's triple on the same frames."""
+    H = make_regular_ldpc_parity_check_matrix_identity(300, 150, 3, 6, 1)
+    before = chain_exclusive_cuda.launches
+    runs = [simulate_frame_error_rate_qary(H, 1, 0.005, 300, 7, batch_size=128, backend=be, early_exit=True,
+                                           device=cuda) for be in (None, "plain")]
+    assert chain_exclusive_cuda.launches > before
+    assert runs[0] == runs[1] and runs[0][0] > 0
 
 
 def _fused_inputs(H, b, frames, seed, device):
