@@ -14,7 +14,10 @@ fixed-pattern and adaptive attack simulations.  Path 4 is the HQC-192 and
 HQC-256 FER step ([circulant(35851, 30) | I] and [circulant(57637, 30) | I],
 bench.py --param-sets) at batch 2048 through K1 and through the lean kernel
 K4, which stores its message planes in bf16 as the TPU's lean kernel does,
-and the HQC-128 FER step through K4.
+and the HQC-128 FER step through K4.  Path 5 is the HQC-128 key-recovery
+attack with the idealized oracle (seed 0, the fixture key, a decode every 50
+checks, circulant weight 20) through its masked multi-circulant decode, the
+CUDA kernel K8, and through the general binary BP decode.
 
 Phases (each prints one line; any failure exits non-zero):
   1. build the CUDA kernels from csrc/ (one nvcc per source, in parallel)
@@ -110,7 +113,23 @@ Phases (each prints one line; any failure exits non-zero):
      bf16 message planes; reported, not gated);
  15. K1's and K4's iteration sweeps on the three FER cells' traffic (HQC-128
      at batch 4096, HQC-192 and HQC-256 at 2048, rate 0.01): ms at max_iter
-     0-3 (best of 3), so set-up, first and each later iteration.
+     0-3 (best of 3), so set-up, first and each later iteration;
+ 16. K8 (multi_circulant_bp_cuda) against its plain version on the seed-0
+     attack's own check sets (N = 17,669, W = 20, recorded through a
+     decode executor from a run of the attack): the recovery's 2,850 rows
+     and the first decode's 50 (which does not converge and runs 100
+     iterations), at P = 1, 3 and 8 blocks (row j in block j mod P, its
+     value under that block's circulant, wrong where the attack's check was
+     wrong) and batch 1 and 16 (the last or the first 16 decodes' sets):
+     decisions, conv and iteration counts equal to plain on every frame that
+     converged, the differences on the others reported; at P = 1 the same
+     against K2; ms a decode and an iteration (K8, plain, K2 at P = 1),
+     blocks a launch, registers, bound and share;
+ 17. path 5 through the public API, with the launch counts reset before and
+     read after: simulate_hqc_idealized_oracle with decode_backend
+     "circulant" (K8) and "general" on the card, and "circulant" on the CPU,
+     whose success sequence and oracle calls the card run must equal; success,
+     oracle calls, decodes, wall s and s inside the decodes.
 
 Then one JSON line of per-kernel results (time, plain version's time, the
 bound from ops/kernels/bounds.py with the work this run's inputs needed, and
@@ -125,6 +144,7 @@ import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -132,7 +152,7 @@ import torch
 N, W, ERR, MAX_ITER = 17669, 20, 0.01, 30
 CMP_FRAMES = 512
 BATCH, BATCHES = 4096, 5
-SOURCES = ("circulant_bp", "qary_min_sum", "circulant_lean")
+SOURCES = ("circulant_bp", "qary_min_sum", "circulant_lean", "circulant_multi")
 QB, QITER = 7, 10  # medium decoder: B, iterations
 FER_B, FER_RATE, FER_ITER, FER_BATCHES = 1, 0.005, 5, 4
 KY_SW, KY_ITER = 6, 10  # Kyber-768 decoder: sum weight, iterations
@@ -140,6 +160,10 @@ N192, N256, W_BIG = 35851, 57637, 30  # HQC-192 and HQC-256 attack codes (bench.
 LEAN_FRAMES, PS_BATCH, PS_BATCHES = 256, 2048, 2
 BF16_FRAMES, BF16_ITER = 8192, 50
 K1_HARD_RATE = 0.02  # a noisier HQC-192/256 rate: more iterations a frame
+KEYFILE = Path(__file__).resolve().parent / "fixtures" / "test-hqc128.key"  # the attack's fixture key
+ATTACK = dict(decode_every=50, weight=20, keyfile=str(KEYFILE), error_rate=0.0, param_set="128",
+              max_oracle_calls=60000)  # path 5: the seed-0 HQC-128 attack
+ATTACK_ITER, ATTACK_BATCH, ATTACK_BLOCKS = 100, 16, (1, 3, 8)
 
 
 def _card():
@@ -366,6 +390,7 @@ def main():
     kyber = _kyber_phases(dev, tag, k5_held)
     lean = _lean_phases(dev, tag, lib_paths["circulant_lean"], lay)
     _k1_sweep(dev, tag, lay)
+    attack = _attack_phases(dev, tag)
 
     src = "sca_ldpc_tpu_torch/csrc/circulant_bp.cu"
     # K1's first iteration needs no phi a message under its one constant prior
@@ -382,6 +407,7 @@ def main():
         *qary,
         *kyber,
         *lean,
+        *attack,
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
@@ -935,6 +961,176 @@ def _k1_sweep(dev, tag, lay128):
                   f"{' / '.join(f'{x:.3f}' for x in t)}; set-up {t[0]:.3f}, first iteration {t[1] - t[0]:.3f}, each "
                   f"later one {(t[3] - t[1]) / 2:.3f} {tag}")
         del e_b
+
+
+class _Recorder:
+    """A decode executor that keeps each decode's check set (the masked
+    decoder's rows and block shifts, the checks, the secret's support) and
+    then decodes as the decoder would alone."""
+
+    def __init__(self):
+        self.sets = []
+
+    def decode(self, decoder, tracking, checks, y_sparse):
+        state = decoder.state_dict()
+        self.sets.append((list(state["rows"]), list(state["block_shifts"]), list(checks), list(y_sparse)))
+        return decoder.decode(tracking, checks, y_sparse)
+
+
+def _masked_cell(sets, p, dev, true_values=False):
+    """The masked decode's inputs for the recorded check sets ``sets`` (one
+    frame each) over ``p`` blocks: block 0 the attack's circulant, blocks 1..
+    circulants of seeds 1..; every block measures the set's rows, each with
+    its value under that block's circulant, wrong where the attack's check
+    was wrong (unless ``true_values``), with the attack's certainty."""
+    from sca_ldpc_tpu_torch.codes import random_circulant_first_row
+    from sca_ldpc_tpu_torch.models.hqc import sparse_times_sparse
+    from sca_ldpc_tpu_torch.models.hqc.attack import MaskedCirculantCheckDecoder, add_check, make_params
+    from sca_ldpc_tpu_torch.utils import make_random_state
+
+    params = make_params("128", ATTACK["decode_every"], ATTACK["weight"])
+    blocks = [tuple(sets[0][1][0])] + [tuple(int(k) for k in np.flatnonzero(random_circulant_first_row(
+        N, ATTACK["weight"], make_random_state(q)))) for q in range(1, p)]
+    frames = []
+    for rows, block_shifts, checks, y in sets:
+        truth = [set(sparse_times_sparse(y, list(k), N)) for k in blocks]
+        measured = [set(sparse_times_sparse(y, list(k), N)) for k in block_shifts]
+        dec = MaskedCirculantCheckDecoder(params, device="cpu")
+        dec.load_state_dict({"row_supports": [], "rows": [], "block_shifts": blocks})
+        spread = []
+        for q in range(p):
+            for (blk, bit), (c, certainty) in zip(rows, checks):
+                wrong = not true_values and bool(c) != (bit in measured[blk])
+                add_check(dec, blocks[q], spread, None, bit, (bit in truth[q]) != wrong, certainty)
+        frames.append(dec.build_masked_arrays(spread, y))
+    prior_c, prior_i, syn, shifts = [np.stack([f[i] for f in frames]) for i in range(3)] + [frames[0][3]]
+    return (torch.from_numpy(prior_c).to(dev), torch.from_numpy(prior_i).to(dev),
+            torch.from_numpy(syn.astype(np.uint8)).to(dev), torch.from_numpy(shifts).to(dev))
+
+
+def _attack_phases(dev, tag):
+    """Phases 16-17; returns K8's entry of the JSON line."""
+    from sca_ldpc_tpu_torch.models.hqc import simulate_hqc_idealized_oracle
+    from sca_ldpc_tpu_torch.ops.kernels import circulant_bp_cuda, multi_circulant_bp_cuda, multi_circulant_bp_plain
+    from sca_ldpc_tpu_torch.ops.kernels.bounds import multi_circulant_bound_ms
+    from sca_ldpc_tpu_torch.ops.kernels.circulant_cuda import multi_circulant_blocks, multi_circulant_ptxas
+    from sca_ldpc_tpu_torch.utils import make_random_state
+
+    # ---- phase 16: K8 against its plain version on the attack's check sets
+    if not KEYFILE.is_file():  # the attack would make a new key there
+        raise SystemExit(f"the fixture key {KEYFILE} is missing")
+    rec = _Recorder()
+    t0 = time.perf_counter()
+    ok, tracking = simulate_hqc_idealized_oracle(make_random_state(0), decode_backend="circulant",
+                                                 decode_executor=rec, device=dev, **ATTACK)
+    print(f"phase 16 check sets of the seed-0 attack: recovered {ok} after {tracking.num_oracle_calls} oracle calls, "
+          f"{len(rec.sets)} decodes of {len(rec.sets[0][2])} to {len(rec.sets[-1][2])} checks "
+          f"({time.perf_counter() - t0:.2f} s)")
+    if not ok or len(rec.sets) < ATTACK_BATCH:
+        raise SystemExit("phase 16: the seed-0 attack did not recover the key with enough decodes")
+    ptxas = multi_circulant_ptxas()
+    print("phase 16 K8 kernels (kernel, MAXW, method: registers, spill bytes): " + " | ".join(
+        f"{k}{'' if mw is None else f' {mw} {m}'}: {r}/{sp}" for (k, mw, m), (r, sp) in sorted(
+            ptxas.items(), key=lambda x: (x[0][0], x[0][1] or 0, x[0][2] or ""))))
+    if any(sp for _r, sp in ptxas.values()):
+        raise SystemExit(f"K8: a kernel spills: {ptxas}")
+    w = ATTACK["weight"]
+    k8_err, main = 0, None
+    last, first = (lambda b: rec.sets[-b:]), (lambda b: rec.sets[:b])
+    cells = ([("2850 rows", last, False, p) for p in ATTACK_BLOCKS] + [("2850 rows, true values", last, True, 1)]
+             + [("50 rows", first, False, p) for p in ATTACK_BLOCKS])
+    converged = 0
+    for label, pick, true_values, p in cells:
+        for b in (1, ATTACK_BATCH):
+            args = _masked_cell(pick(b), p, dev, true_values)
+            out_k = multi_circulant_bp_cuda(*args, ATTACK_ITER)
+            out_p = multi_circulant_bp_plain(*args, ATTACK_ITER)
+            torch.cuda.synchronize()
+            e_c, e_i, conv, it = out_k
+            conv_any = conv | out_p[2]
+            converged += int(conv_any.sum())
+            same = ((e_c == out_p[0]).all(dim=-1) & (e_i == out_p[1]).flatten(1).all(dim=-1)
+                    & (it == out_p[3]) & (conv == out_p[2]))
+            diff_bits = int((e_c != out_p[0]).sum(dim=-1)[~conv_any].sum()
+                            + (e_i != out_p[1]).flatten(1).sum(dim=-1)[~conv_any].sum())
+            k8_err = max([k8_err] + [max(int((e_c[f] - out_p[0][f]).abs().max()),
+                                         int((e_i[f] - out_p[1][f]).abs().max())) for f in range(b) if conv_any[f]])
+            ms_k = _ms(lambda: multi_circulant_bp_cuda(*args, ATTACK_ITER))
+            ms_p = _ms(lambda: multi_circulant_bp_plain(*args, ATTACK_ITER), repeats=1)
+            iters = int(it.max())
+            nbytes = _nbytes(*args, e_c.to(torch.uint8), e_i.to(torch.uint8), conv, it)
+            bound = multi_circulant_bound_ms(int(it.sum()), p, w, N, nbytes)
+            blocks = multi_circulant_blocks(b, p, N)
+            k2 = ""
+            if p == 1:
+                k2_args = (args[0], args[1][:, 0].contiguous(), args[2][:, 0].contiguous(), args[3][0].tolist(),
+                           ATTACK_ITER, "product_sum")
+                e2, conv2, it2 = circulant_bp_cuda(*k2_args)
+                torch.cuda.synchronize()
+                same2 = (torch.cat([e_c, e_i[:, 0]], dim=-1) == e2).all(dim=-1) & (it == it2) & (conv == conv2)
+                either2 = conv | conv2
+                ms_2 = _ms(lambda: circulant_bp_cuda(*k2_args))
+                k2 = (f"; K2 {ms_2:.3f} ms ({ms_2 / max(int(it2.max()), 1):.4f} an iteration), equal to K8 on "
+                      f"{int(same2.sum())}/{b} frames, on every converged one: {bool(same2[either2].all())}")
+                if not bool(same2[either2].all()):
+                    raise SystemExit(f"K8 {label} P=1 batch {b}: decisions differ from K2 on a converged frame")
+            print(f"phase 16 K8 {label}{'' if b == 1 else f' (the {b} decodes at that end)'} P={p} batch {b}: "
+                  f"converged {int(conv.sum())}/{b} (plain {int(out_p[2].sum())}), iterations {it.tolist()}; "
+                  f"equal to plain on {int(same.sum())}/{b} frames, on every converged one: "
+                  f"{bool(same[conv_any].all())}; unconverged frames that differ: {int((~same & ~conv_any).sum())} "
+                  f"({diff_bits} decision bits); "
+                  f"K8 {ms_k:.3f} ms ({ms_k / max(iters, 1):.4f} an iteration), plain {ms_p:.3f} ms "
+                  f"({ms_p / max(iters, 1):.4f}){k2}; {blocks['check']} + {blocks['variable']} blocks of "
+                  f"{blocks['threads']} a sweep; bound {bound[0]:.4f} ms ({bound[1]}), K8 at "
+                  f"{100 * bound[0] / ms_k:.2f}% {tag}")
+            if not bool(same[conv_any].all()):
+                raise SystemExit(f"K8 {label} P={p} batch {b}: kernel and plain disagree on a converged frame")
+            if not torch.equal(it, out_p[3]):
+                raise SystemExit(f"K8 {label} P={p} batch {b}: iteration counts differ from plain: {it.tolist()} "
+                                 f"against {out_p[3].tolist()}")
+            if label == "2850 rows" and p == 1 and b == 1 and not bool(same.all()):
+                # the attack's own recovery decode: K8 sums in the plain version's order, so it gives the same
+                # bits even on a frame that runs all its iterations unconverged
+                raise SystemExit(f"K8 {label} P=1 batch 1: {diff_bits} decision bits differ from plain")
+            if true_values and b == 1 and not bool(conv.all()):
+                raise SystemExit("K8: the recovery's rows at their true values did not converge")
+            if label == "2850 rows" and p == 1 and b == 1:
+                main = (ms_k, ms_p, bound)  # the attack's own recovery decode
+    print(f"phase 16 K8: {converged} converged frames held equal to plain; max_abs_err on them {k8_err}")
+
+    # ---- phase 17: path 5 through the public API
+    torch.cuda.synchronize()
+    for kernel in (circulant_bp_cuda, multi_circulant_bp_cuda):
+        kernel.launches = 0
+    runs = {}
+    for backend, device in (("circulant", dev), ("general", dev), ("padded", dev), ("circulant", "cpu")):
+        t0 = time.perf_counter()
+        ok, tracking = simulate_hqc_idealized_oracle(make_random_state(0), decode_backend=backend, device=device,
+                                                     **ATTACK)
+        if device == dev:
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        runs[backend, str(device)] = (ok, tracking)
+        if backend == "circulant" and device == dev:
+            launches = multi_circulant_bp_cuda.launches
+        print(f"phase 17 attack decode_backend {backend} on {device}: success {ok}, {tracking.num_oracle_calls} "
+              f"oracle calls, {len(tracking.decoder_stats)} decodes, {wall:.2f} s, {tracking.decode_seconds:.2f} s "
+              f"inside the decodes, {wall - tracking.decode_seconds:.2f} s outside"
+              + (f" {tag}" if device == dev else ""))
+        if not ok:
+            raise SystemExit(f"the {backend} attack on {device} did not recover the key")
+    card, cpu = runs["circulant", str(dev)][1], runs["circulant", "cpu"][1]
+    same = ([d["success"] for d in card.decoder_stats] == [d["success"] for d in cpu.decoder_stats]
+            and card.num_oracle_calls == cpu.num_oracle_calls)
+    print(f"phase 17 launches {{'multi_circulant_bp_cuda': {launches}}}; the card's circulant run equals the CPU "
+          f"run (success sequence, oracle calls): {same}; final stats equal: "
+          f"{card.decoder_stats[-1] == cpu.decoder_stats[-1]}")
+    if not same:
+        raise SystemExit("the circulant attack on the card and on the CPU disagree")
+    if launches != len(card.decoder_stats):
+        raise SystemExit(f"K8 launched {launches} times for {len(card.decoder_stats)} decodes of path 5")
+    return [_entry("multi_circulant_bp_cuda", "sca_ldpc_tpu_torch/csrc/circulant_multi.cu",
+                   "sca_ldpc_tpu/ops/circulant_bp.py:126", launches, k8_err, *main)]
 
 
 if __name__ == "__main__":

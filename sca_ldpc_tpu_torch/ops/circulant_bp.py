@@ -16,21 +16,18 @@ Two implementations of the same decode:
 
 The identity block's variables have degree 1, so their v2c messages equal
 their channel priors, constant across iterations.
+
+:func:`_multi_circulant_bp` is the HQC attack's masked decode over P stacked
+circulants sharing the variables, each row with its own identity column; on
+CUDA tensors it runs the CUDA kernel K8 (``csrc/circulant_multi.cu``), on CPU
+tensors its plain version :func:`_multi_circulant_bp_frames`.
 """
 
 import numpy as np
 import torch
 
 from ..codes.layout import CirculantLayout
-
-_BIG = 60.0  # LLR clip: tanh saturates at float32 well below this
-MIN_SUM_ALPHA = 0.75  # normalized min-sum scale (standard 0.7-0.8 range)
-
-
-def _phi(x):
-    """Gallager phi(x) = -log(tanh(x/2)), a self-inverse on (0, inf)."""
-    x = torch.clamp(x, 1e-9, _BIG)
-    return -torch.log(torch.tanh(0.5 * x))
+from .binary_bp import _BIG, MIN_SUM_ALPHA, _phi
 
 
 def _plane_check_update(planes, sign_syn, method):
@@ -125,6 +122,76 @@ def _circulant_bp(prior_c, prior_i, syndrome, shifts, with_identity, max_iter, m
         prior_c, prior_i, syndrome, shifts, with_identity, max_iter, method
     )
     return e, conv, _batch_iterations(iters)
+
+
+def _multi_circulant_bp_frames(prior_c, prior_i, syndrome, shifts, max_iter, method):
+    """Plain decode of ``H = [[C_1]; ...; [C_P]] | I_{P*N}`` with per-frame
+    iteration counts: the JAX package's ``_multi_circulant_bp``, line by line.
+
+    prior_c [B, N] float32 LLRs of the shared circulant-part variables;
+    prior_i [B, P, N] identity-part priors (exactly 0 on an inert, unmeasured
+    row); syndrome [B, P, N] 0/1; shifts [P, W] integers, one circulant's
+    support offsets a block, as data (read to the host once).  Returns (e_c
+    [B, N] int32, e_i [B, P, N] int32, conv [B] bool, iters [B] int32)."""
+    b, p, n = syndrome.shape
+    dev = syndrome.device
+    k = (torch.as_tensor(shifts).to(torch.int64) % n).tolist()  # [P][W]
+    w = len(k[0])
+    syndrome8 = syndrome.to(torch.int8)
+    sign_syn = (1 - 2 * syndrome8).to(torch.float32)  # [B, P, N]
+
+    def plane_stack(x):  # [B, N] -> [B, P, W, N], plane (p, t) = roll(x, k[p][t])
+        return torch.stack([torch.stack([torch.roll(x, kt, dims=-1) for kt in kp], dim=1) for kp in k], dim=1)
+
+    # the first iteration sees the unclipped rolled priors
+    v2c = plane_stack(prior_c)
+
+    def iterate(v2c):
+        planes = torch.cat([v2c, prior_i[:, :, None, :]], dim=2)
+        c2v = _plane_check_update(planes.reshape(b * p, w + 1, n), sign_syn.reshape(b * p, n), method)
+        c2v = c2v.reshape(b, p, w + 1, n)
+        c2v_c = c2v[:, :, :w, :]
+        # variable totals: each plane realigned at its variables, summed in (block, plane) order
+        tot_c = prior_c + sum(torch.roll(c2v_c[:, pi, t, :], -kt, dims=-1)
+                              for pi, kp in enumerate(k) for t, kt in enumerate(kp))
+        v2c_new = torch.clamp(plane_stack(tot_c) - c2v_c, -_BIG, _BIG)
+        tot_i = prior_i + c2v[:, :, w, :]
+        return v2c_new, tot_c, tot_i
+
+    def syndrome_of(e_c, e_i):
+        s = torch.stack([sum(torch.roll(e_c, kt, dims=-1) for kt in kp) for kp in k], dim=1)
+        return (s + e_i) % 2
+
+    e_out_c = (prior_c < 0).to(torch.int8)
+    e_out_i = (prior_i < 0).to(torch.int8)
+    conv = torch.zeros((b,), dtype=torch.bool, device=dev)
+    iters = torch.zeros((b,), dtype=torch.int32, device=dev)
+    it = 0
+    while it < max_iter and not bool(torch.all(conv)):
+        v2c, tot_c, tot_i = iterate(v2c)
+        e_c = (tot_c < 0).to(torch.int8)
+        e_i = (tot_i < 0).to(torch.int8)
+        ok = torch.all((syndrome_of(e_c, e_i) == syndrome8).reshape(b, -1), dim=-1)
+        # latch each frame's first converged estimate
+        e_out_c = torch.where(conv[:, None], e_out_c, e_c)
+        e_out_i = torch.where(conv[:, None, None], e_out_i, e_i)
+        iters = torch.where(conv, iters, it + 1)
+        conv = conv | ok
+        it += 1
+    return e_out_c.to(torch.int32), e_out_i.to(torch.int32), conv, iters
+
+
+def _multi_circulant_bp(prior_c, prior_i, syndrome, shifts, max_iter, method):
+    """The JAX package's ``_multi_circulant_bp``: BP over
+    ``H = [[C_1]; ...; [C_P]] | I_{P*N}`` (the HQC attack's masked decode; see
+    :func:`_multi_circulant_bp_frames` for the arguments).  On CUDA tensors it
+    runs the CUDA kernel K8 (``multi_circulant_bp_cuda``), on CPU tensors the
+    plain version.  Returns (e_c int32, e_i int32, conv [B] bool, it), ``it``
+    (0-d int32) the largest per-frame iteration count."""
+    from .kernels.circulant_cuda import multi_circulant_bp_cuda
+
+    e_c, e_i, conv, iters = multi_circulant_bp_cuda(prior_c, prior_i, syndrome, shifts, max_iter, method)
+    return e_c, e_i, conv, _batch_iterations(iters)
 
 
 def _batch_iterations(iters):

@@ -11,6 +11,8 @@ from .circulant_cuda import (
     circulant_fer_lean_cuda,
     circulant_fer_lean_plain,
     circulant_fer_plain,
+    multi_circulant_bp_cuda,
+    multi_circulant_bp_plain,
 )
 from .qary_cuda import (
     chain_exclusive_cuda,
@@ -32,6 +34,8 @@ __all__ = [
     "circulant_fer_lean_cuda",
     "circulant_fer_lean_plain",
     "circulant_fer_plain",
+    "multi_circulant_bp_cuda",
+    "multi_circulant_bp_plain",
     "qary_min_sum_fused_cuda",
     "qary_min_sum_fused_plain",
     "qary_special_min_sum_fused_cuda",

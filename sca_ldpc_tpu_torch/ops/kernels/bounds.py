@@ -7,9 +7,9 @@ kind.  Where the work depends on the data (BP iterations that end early),
 the count is what the given inputs needed.  The rates are the published
 peaks at the full 700 W power limit.
 
-- K1–K4 (binary BP, product-sum): 2 phi = -log(tanh(x/2)) per message
-  (check, plane) and iteration, so 4 transcendentals a message, on the
-  special function units (SFU);
+- K1–K4 and K8 (binary BP, product-sum): 2 phi = -log(tanh(x/2)) per
+  message (check, plane) and iteration, so 4 transcendentals a message, on
+  the special function units (SFU);
 - K5–K7 (q-ary min-sum): the add+min pairs of the min-plus chain
   (``minplus.chain_exclusive``) whose operands' indices are in range, 2 FP32
   instructions a pair (an add and a min; the 67 TFLOP/s peak counts an FMA
@@ -38,6 +38,20 @@ def circulant_messages(iterations, w, n, with_identity=True):
 def circulant_bound_ms(iterations, w, n, nbytes, with_identity=True):
     """K1–K4's bound: 4 transcendentals a message on the SFU, or ``nbytes``."""
     return bound_ms(4 * circulant_messages(iterations, w, n, with_identity), SFU_OPS_S, nbytes)
+
+
+def multi_circulant_messages(iterations, p, w, n):
+    """Messages K8's masked decode computes: ``iterations`` (the sum of each
+    frame's iteration count) times P blocks times (w + 1) planes (the
+    identity member with them) times N checks.  An inert row counts like any
+    other: the decode computes it."""
+    return int(iterations) * int(p) * (int(w) + 1) * int(n)
+
+
+def multi_circulant_bound_ms(iterations, p, w, n, nbytes):
+    """K8's bound: 4 transcendentals a message on the SFU (as K1–K4), or
+    ``nbytes``."""
+    return bound_ms(4 * multi_circulant_messages(iterations, p, w, n), SFU_OPS_S, nbytes)
 
 
 def chain_pairs(d, b_sup, s_mid, s_out=None, se=0):

@@ -10,12 +10,15 @@ Counterparts of ``sca_ldpc_tpu/ops/kernels/circulant_pallas.py``:
 - :func:`circulant_bp_lean_cuda` (``circulant_bp_pallas_lean``) and
   :func:`circulant_fer_lean_cuda` (``circulant_fer_pallas_lean``): the same
   two entry points over the lean decode, which rounds its v2c and c2v
-  messages to bf16 at the TPU kernel's rounding points (product-sum only).
+  messages to bf16 at the TPU kernel's rounding points (product-sum only);
+- :func:`multi_circulant_bp_cuda` (K8; the XLA function
+  ``ops/circulant_bp.py`` ``_multi_circulant_bp``, which has no Pallas
+  kernel): the HQC attack's masked decode over P stacked circulants.
 
 The first two launch ``csrc/circulant_bp.cu``, the lean pair
-``csrc/circulant_lean.cu`` (built with ``nvcc`` at first use, see
-``_build.py``), for CUDA tensors, and run the plain version beside them for
-CPU tensors.  There is no fallback: a CUDA tensor that the kernel cannot take
+``csrc/circulant_lean.cu``, K8 ``csrc/circulant_multi.cu`` (built with
+``nvcc`` at first use, see ``_build.py``), for CUDA tensors, and run the
+plain version beside them for CPU tensors.  There is no fallback: a CUDA tensor that the kernel cannot take
 raises.  Each wrapper counts its kernel launches in ``.launches``.
 :func:`circulant_launch` is the first pair's launch configuration for a
 device's shared-memory limits (:func:`smem_limits`): where the variable
@@ -36,7 +39,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..circulant_bp import _BIG, _circulant_bp_frames, _phi
+from ..circulant_bp import _BIG, _circulant_bp_frames, _multi_circulant_bp_frames, _phi
 
 _METHODS = {"product_sum": 0, "min_sum": 1}
 _MAX_W = 64
@@ -562,3 +565,108 @@ def circulant_fer_lean_cuda(errors, shifts, error_rate, max_iter, method="produc
 
 
 circulant_fer_lean_cuda.launches = 0
+
+
+@functools.cache
+def _multi_lib():
+    from ._build import load
+
+    lib = load("circulant_multi")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.multi_circulant_bp_decode.argtypes = [p, p, p, p, i, i, i, i, i, i, i, p, p, p, p, p, p, p, p]
+    lib.multi_circulant_bp_decode.restype = i
+    lib.multi_circulant_bp_blocks.argtypes = [i, i, i, p]
+    lib.multi_circulant_bp_blocks.restype = None
+    return lib
+
+
+def multi_circulant_blocks(batch, p, n):
+    """Blocks a launch of K8's sweeps takes: {"check" (also the syndrome
+    sweep), "variable", "threads" (a block)}, from the built library."""
+    out = (ctypes.c_int * 3)()
+    _multi_lib().multi_circulant_bp_blocks(int(batch), int(p), int(n), out)
+    return {"check": out[0], "variable": out[1], "threads": out[2]}
+
+
+def multi_circulant_ptxas():
+    """ptxas's ``-v`` report on K8's kernels: {(kernel, MAXW or None,
+    method or None): (registers, spill bytes stored and loaded)} a thread.
+    Builds the library if needed (needs nvcc)."""
+    from ._build import build
+
+    return _ptxas_report(
+        build("circulant_multi"), r"multi_(init|check|var|syndrome|status|final)_kernel(?:ILi(\d+)ELb(\d)E)?",
+        lambda m: (m[1], int(m[2]) if m[2] else None,
+                   None if m[3] is None else ("min_sum" if m[3] == "1" else "product_sum")))
+
+
+def _check_multi(prior_c, prior_i, syndrome, shifts, max_iter, method):
+    """Checks the masked decode's inputs; returns (device, B, P, N, shifts as
+    int32 [P, W] in [0, N) on the device)."""
+    device = prior_c.device
+    if prior_c.ndim != 2 or syndrome.ndim != 3:
+        raise ValueError(f"prior_c must be [B, N] and syndrome [B, P, N], got shapes {tuple(prior_c.shape)} "
+                         f"and {tuple(syndrome.shape)}")
+    b, p, n = syndrome.shape
+    _check(prior_c, "prior_c", (b, n), (torch.float32,), device)
+    _check(prior_i, "prior_i", (b, p, n), (torch.float32,), device)
+    _check(syndrome, "syndrome", (b, p, n), _INT_DTYPES, device)
+    k = torch.as_tensor(shifts, device=device)
+    if k.ndim != 2 or k.shape[0] != p or not 1 <= k.shape[1] <= _MAX_W:
+        raise ValueError(f"shifts must be [P={p}, W] with W in [1, {_MAX_W}], got shape {tuple(k.shape)}")
+    if k.dtype not in _INT_DTYPES[1:]:
+        raise TypeError(f"shifts has dtype {k.dtype}, expected an integer dtype")
+    if method not in _METHODS:
+        raise ValueError(f"unknown bp method: {method}")
+    if int(max_iter) < 0:
+        raise ValueError("max_iter must be >= 0")
+    return device, b, p, n, (k.to(torch.int64) % n).to(torch.int32).contiguous()
+
+
+def multi_circulant_bp_plain(prior_c, prior_i, syndrome, shifts, max_iter, method="product_sum"):
+    """Plain PyTorch version of :func:`multi_circulant_bp_cuda`, on any device."""
+    return _multi_circulant_bp_frames(prior_c, prior_i, syndrome, shifts, int(max_iter), method)
+
+
+def multi_circulant_bp_cuda(prior_c, prior_i, syndrome, shifts, max_iter, method="product_sum"):
+    """Decode the masked multi-circulant code ``[[C_1]; ...; [C_P]] | I_{P*N}``
+    (K8).
+
+    prior_c [B, N] float32 LLRs of the shared variables; prior_i [B, P, N]
+    float32 identity priors (exactly 0 on an unmeasured row); syndrome
+    [B, P, N] 0/1 (integer or bool); shifts [P, W] integers (a tensor or
+    array; one circulant's support offsets a block).  Returns (e_c [B, N] int32, e_i [B, P, N]
+    int32, conv [B] bool, iters [B] int32), ``iters`` being the iteration at
+    which each frame first converged, or the number run if it never did.
+    """
+    device, b, p, n, k = _check_multi(prior_c, prior_i, syndrome, shifts, max_iter, method)
+    if device.type == "cpu":
+        return multi_circulant_bp_plain(prior_c, prior_i, syndrome, k, max_iter, method)
+    if b * p > 65535:
+        raise ValueError(f"B * P = {b * p} above the kernel's 65,535 rows of blocks")
+
+    stream = _cuda_stream(device)
+    w = k.shape[1]
+    ld = _round_up(n, 32)
+    with torch.cuda.device(device):
+        syn = syndrome.to(torch.uint8).contiguous()
+        c2v = torch.empty((b, p, w, ld), dtype=torch.float32, device=device)
+        tot = torch.empty((b, n), dtype=torch.float32, device=device)
+        state = torch.empty((2 * b + 1,), dtype=torch.int32, device=device)
+        e_c = torch.empty((b, n), dtype=torch.uint8, device=device)
+        e_i = torch.empty((b, p, n), dtype=torch.uint8, device=device)
+        conv = torch.empty((b,), dtype=torch.uint8, device=device)
+        iters = torch.empty((b,), dtype=torch.int32, device=device)
+        if b:
+            rc = _multi_lib().multi_circulant_bp_decode(
+                prior_c.data_ptr(), prior_i.data_ptr(), syn.data_ptr(), k.data_ptr(), p, w, n, ld, b,
+                int(max_iter), _METHODS[method], c2v.data_ptr(), tot.data_ptr(),
+                state.data_ptr(), e_c.data_ptr(), e_i.data_ptr(), conv.data_ptr(), iters.data_ptr(), stream,
+            )
+            if rc != 0:
+                raise RuntimeError(f"multi_circulant_bp_decode failed: CUDA error {rc}")
+            multi_circulant_bp_cuda.launches += 1
+    return e_c.to(torch.int32), e_i.to(torch.int32), conv.bool(), iters
+
+
+multi_circulant_bp_cuda.launches = 0

@@ -158,6 +158,9 @@ ENTRY_POINTS = [
     "models.kyber.pipeline:get_decoder",
     "models.kyber.pipeline:simulate_kyber_attack",
     "models.kyber.pipeline:simulate_kyber_attack_adaptive",
+    "ops.binary_bp:BinaryBPDecoder",
+    "models.hqc.attack:simulate_hqc_idealized_oracle",
+    "models.hqc.attack:MaskedCirculantCheckDecoder",
 ]
 
 
@@ -210,6 +213,44 @@ def test_port_runs_without_jax():
         assert fer_simulation(lay, np.full(256, 0.001, np.float32), 4, gen, "cpu")[1] == 4
         leaked = [m for m in sys.modules if m == "sca_ldpc_tpu" or m.startswith("sca_ldpc_tpu.")
                   or (m.startswith("jax") and sys.modules[m] is not None)]
+        assert not leaked, leaked
+        print("ok")
+        """
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, env=env,
+                         cwd=ROOT, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_hqc_modules_run_without_jax_or_pandas():
+    """A process where ``import jax`` and ``import pandas`` fail imports the
+    port's HQC attack and its decoders and decodes on the CPU; neither the
+    JAX package nor pandas is loaded."""
+    code = textwrap.dedent(
+        """
+        import sys
+        sys.modules["jax"] = None
+        sys.modules["pandas"] = None
+        import numpy as np
+        import torch
+        import sca_ldpc_tpu_torch.models.hqc
+        from sca_ldpc_tpu_torch.models.hqc import Hqc128, HqcSimulationParams, HqcSimulationTracking
+        from sca_ldpc_tpu_torch.models.hqc.attack import MaskedCirculantCheckDecoder, add_check
+        from sca_ldpc_tpu_torch.models.hqc.oracle_fast import FastCiphertextState
+        from sca_ldpc_tpu_torch.ops.binary_bp import BinaryBPDecoder
+        from sca_ldpc_tpu_torch.ops.kernels import multi_circulant_bp_cuda
+        params = HqcSimulationParams(Hqc128, None, None, None, WEIGHT=3, N_OVERRIDE=20)
+        dec = MaskedCirculantCheckDecoder(params, device="cpu")
+        checks = []
+        for bit in range(20):
+            add_check(dec, [0, 3, 7], checks, None, bit, bit in (4, 11), 1.0)
+        dec.decode(HqcSimulationTracking(params), checks, [4])
+        h = np.eye(4, 5, dtype=int) + np.eye(4, 5, 1, dtype=int)
+        assert BinaryBPDecoder(h, 5, error_rate=0.1, device="cpu").decode_syndrome(np.zeros(4, int)).sum() == 0
+        leaked = [m for m in sys.modules if m == "sca_ldpc_tpu" or m.startswith("sca_ldpc_tpu.")
+                  or (m.split(".")[0] in ("jax", "pandas") and sys.modules[m] is not None)]
         assert not leaked, leaked
         print("ok")
         """
