@@ -114,22 +114,26 @@ Phases (each prints one line; any failure exits non-zero):
  15. K1's and K4's iteration sweeps on the three FER cells' traffic (HQC-128
      at batch 4096, HQC-192 and HQC-256 at 2048, rate 0.01): ms at max_iter
      0-3 (best of 3), so set-up, first and each later iteration;
- 16. K8 (multi_circulant_bp_cuda) against its plain version on the seed-0
-     attack's own check sets (N = 17,669, W = 20, recorded through a
-     decode executor from a run of the attack): the recovery's 2,850 rows
-     and the first decode's 50 (which does not converge and runs 100
-     iterations), at P = 1, 3 and 8 blocks (row j in block j mod P, its
-     value under that block's circulant, wrong where the attack's check was
-     wrong) and batch 1 and 16 (the last or the first 16 decodes' sets):
-     decisions, conv and iteration counts equal to plain on every frame that
-     converged, the differences on the others reported; at P = 1 the same
-     against K2; ms a decode and an iteration (K8, plain, K2 at P = 1),
-     blocks a launch, registers, bound and share;
+ 16. K8 (multi_circulant_bp_cuda, one cooperative launch a decode) against
+     its plain version on the seed-0 attack's own check sets (N = 17,669,
+     W = 20, recorded through a decode executor from a run of the attack;
+     tools/attack_cells.py): the recovery's 2,850 rows, the same at their
+     true values, and the first decode's 50 (which does not converge and
+     runs 100 iterations), at P = 1, 3 and 8 blocks (every block measures
+     the same rows, each with its value under that block's circulant, wrong
+     where the attack's check was wrong) and batch 1 and 16 (the last or the
+     first 16 decodes' sets): decisions, conv and iteration counts equal to
+     plain on every frame, converged or not; at P = 1 equal to K2 on every
+     frame either converged; ms a decode and an iteration (K8, plain, K2 at
+     P = 1), the grid multi_circulant_launch picks and the blocks an SM,
+     bound and share; before it, ptxas's registers and spills of every K8
+     instance (fails on a spill) and the barriers an iteration;
  17. path 5 through the public API, with the launch counts reset before and
      read after: simulate_hqc_idealized_oracle with decode_backend
-     "circulant" (K8) and "general" on the card, and "circulant" on the CPU,
-     whose success sequence and oracle calls the card run must equal; success,
-     oracle calls, decodes, wall s and s inside the decodes.
+     "circulant" (K8), "general" and "padded" on the card, and "circulant"
+     on the CPU, whose success sequence and oracle calls the card run must
+     equal; success, oracle calls, decodes, wall s, s inside the decodes,
+     and of those K8's own device time (CUDA events around each launch).
 
 Then one JSON line of per-kernel results (time, plain version's time, the
 bound from ops/kernels/bounds.py with the work this run's inputs needed, and
@@ -144,7 +148,6 @@ import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
-from pathlib import Path
 
 import numpy as np
 import torch
@@ -160,10 +163,6 @@ N192, N256, W_BIG = 35851, 57637, 30  # HQC-192 and HQC-256 attack codes (bench.
 LEAN_FRAMES, PS_BATCH, PS_BATCHES = 256, 2048, 2
 BF16_FRAMES, BF16_ITER = 8192, 50
 K1_HARD_RATE = 0.02  # a noisier HQC-192/256 rate: more iterations a frame
-KEYFILE = Path(__file__).resolve().parent / "fixtures" / "test-hqc128.key"  # the attack's fixture key
-ATTACK = dict(decode_every=50, weight=20, keyfile=str(KEYFILE), error_rate=0.0, param_set="128",
-              max_oracle_calls=60000)  # path 5: the seed-0 HQC-128 attack
-ATTACK_ITER, ATTACK_BATCH, ATTACK_BLOCKS = 100, 16, (1, 3, 8)
 
 
 def _card():
@@ -963,108 +962,82 @@ def _k1_sweep(dev, tag, lay128):
         del e_b
 
 
-class _Recorder:
-    """A decode executor that keeps each decode's check set (the masked
-    decoder's rows and block shifts, the checks, the secret's support) and
-    then decodes as the decoder would alone."""
+class _TimedLib:
+    """K8's library with CUDA events recorded around each decode launch."""
 
-    def __init__(self):
-        self.sets = []
+    def __init__(self, lib):
+        self.lib, self.events = lib, []
 
-    def decode(self, decoder, tracking, checks, y_sparse):
-        state = decoder.state_dict()
-        self.sets.append((list(state["rows"]), list(state["block_shifts"]), list(checks), list(y_sparse)))
-        return decoder.decode(tracking, checks, y_sparse)
+    def multi_circulant_bp_decode(self, *args):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        rc = self.lib.multi_circulant_bp_decode(*args)
+        end.record()
+        self.events.append((start, end))
+        return rc
 
-
-def _masked_cell(sets, p, dev, true_values=False):
-    """The masked decode's inputs for the recorded check sets ``sets`` (one
-    frame each) over ``p`` blocks: block 0 the attack's circulant, blocks 1..
-    circulants of seeds 1..; every block measures the set's rows, each with
-    its value under that block's circulant, wrong where the attack's check
-    was wrong (unless ``true_values``), with the attack's certainty."""
-    from sca_ldpc_tpu_torch.codes import random_circulant_first_row
-    from sca_ldpc_tpu_torch.models.hqc import sparse_times_sparse
-    from sca_ldpc_tpu_torch.models.hqc.attack import MaskedCirculantCheckDecoder, add_check, make_params
-    from sca_ldpc_tpu_torch.utils import make_random_state
-
-    params = make_params("128", ATTACK["decode_every"], ATTACK["weight"])
-    blocks = [tuple(sets[0][1][0])] + [tuple(int(k) for k in np.flatnonzero(random_circulant_first_row(
-        N, ATTACK["weight"], make_random_state(q)))) for q in range(1, p)]
-    frames = []
-    for rows, block_shifts, checks, y in sets:
-        truth = [set(sparse_times_sparse(y, list(k), N)) for k in blocks]
-        measured = [set(sparse_times_sparse(y, list(k), N)) for k in block_shifts]
-        dec = MaskedCirculantCheckDecoder(params, device="cpu")
-        dec.load_state_dict({"row_supports": [], "rows": [], "block_shifts": blocks})
-        spread = []
-        for q in range(p):
-            for (blk, bit), (c, certainty) in zip(rows, checks):
-                wrong = not true_values and bool(c) != (bit in measured[blk])
-                add_check(dec, blocks[q], spread, None, bit, (bit in truth[q]) != wrong, certainty)
-        frames.append(dec.build_masked_arrays(spread, y))
-    prior_c, prior_i, syn, shifts = [np.stack([f[i] for f in frames]) for i in range(3)] + [frames[0][3]]
-    return (torch.from_numpy(prior_c).to(dev), torch.from_numpy(prior_i).to(dev),
-            torch.from_numpy(syn.astype(np.uint8)).to(dev), torch.from_numpy(shifts).to(dev))
+    def __getattr__(self, name):
+        return getattr(self.lib, name)
 
 
 def _attack_phases(dev, tag):
     """Phases 16-17; returns K8's entry of the JSON line."""
     from sca_ldpc_tpu_torch.models.hqc import simulate_hqc_idealized_oracle
-    from sca_ldpc_tpu_torch.ops.kernels import circulant_bp_cuda, multi_circulant_bp_cuda, multi_circulant_bp_plain
+    from sca_ldpc_tpu_torch.ops.kernels import circulant_bp_cuda, circulant_cuda, multi_circulant_bp_cuda, \
+        multi_circulant_bp_plain
     from sca_ldpc_tpu_torch.ops.kernels.bounds import multi_circulant_bound_ms
-    from sca_ldpc_tpu_torch.ops.kernels.circulant_cuda import multi_circulant_blocks, multi_circulant_ptxas
+    from sca_ldpc_tpu_torch.ops.kernels.circulant_cuda import (
+        multi_circulant_launch,
+        multi_circulant_occupancy,
+        multi_circulant_ptxas,
+    )
+    from sca_ldpc_tpu_torch.tools.attack_cells import ATTACK, BATCH, BLOCKS, ITERATIONS, cells, masked_cell, pick, \
+        record_sets
     from sca_ldpc_tpu_torch.utils import make_random_state
 
     # ---- phase 16: K8 against its plain version on the attack's check sets
-    if not KEYFILE.is_file():  # the attack would make a new key there
-        raise SystemExit(f"the fixture key {KEYFILE} is missing")
-    rec = _Recorder()
     t0 = time.perf_counter()
-    ok, tracking = simulate_hqc_idealized_oracle(make_random_state(0), decode_backend="circulant",
-                                                 decode_executor=rec, device=dev, **ATTACK)
+    ok, tracking, sets = record_sets(dev)
     print(f"phase 16 check sets of the seed-0 attack: recovered {ok} after {tracking.num_oracle_calls} oracle calls, "
-          f"{len(rec.sets)} decodes of {len(rec.sets[0][2])} to {len(rec.sets[-1][2])} checks "
+          f"{len(sets)} decodes of {len(sets[0][2])} to {len(sets[-1][2])} checks "
           f"({time.perf_counter() - t0:.2f} s)")
-    if not ok or len(rec.sets) < ATTACK_BATCH:
+    if not ok or len(sets) < BATCH:
         raise SystemExit("phase 16: the seed-0 attack did not recover the key with enough decodes")
     ptxas = multi_circulant_ptxas()
-    print("phase 16 K8 kernels (kernel, MAXW, method: registers, spill bytes): " + " | ".join(
-        f"{k}{'' if mw is None else f' {mw} {m}'}: {r}/{sp}" for (k, mw, m), (r, sp) in sorted(
-            ptxas.items(), key=lambda x: (x[0][0], x[0][1] or 0, x[0][2] or ""))))
-    if any(sp for _r, sp in ptxas.values()):
-        raise SystemExit(f"K8: a kernel spills: {ptxas}")
     w = ATTACK["weight"]
-    k8_err, main = 0, None
-    last, first = (lambda b: rec.sets[-b:]), (lambda b: rec.sets[:b])
-    cells = ([("2850 rows", last, False, p) for p in ATTACK_BLOCKS] + [("2850 rows, true values", last, True, 1)]
-             + [("50 rows", first, False, p) for p in ATTACK_BLOCKS])
-    converged = 0
-    for label, pick, true_values, p in cells:
-        for b in (1, ATTACK_BATCH):
-            args = _masked_cell(pick(b), p, dev, true_values)
-            out_k = multi_circulant_bp_cuda(*args, ATTACK_ITER)
-            out_p = multi_circulant_bp_plain(*args, ATTACK_ITER)
+    occ = {(p, m): multi_circulant_occupancy(w, m, p, dev) for p in BLOCKS for m in ("product_sum", "min_sum")}
+    print("phase 16 K8 instances (MAXW, method: registers, spill bytes): " + " | ".join(
+        f"{mw} {m}: {r}/{sp}" for (mw, m), (r, sp) in sorted(ptxas.items()))
+          + "; blocks an SM at w = 20 (P, method): " + " | ".join(
+        f"{p} {m}: {o['blocks_per_sm']} of {o['threads']} threads" for (p, m), o in occ.items())
+          + f"; {occ[1, 'product_sum']['sms']} SMs, cooperative launch {occ[1, 'product_sum']['cooperative']}; "
+          "3 grid barriers an iteration (check, variable, syndrome sweeps), one launch a decode")
+    if any(sp for _r, sp in ptxas.values()):
+        raise SystemExit(f"K8: an instance spills: {ptxas}")
+    k8_err, main, frames = 0, None, 0
+    for label, end, true_values, p in cells():
+        for b in (1, BATCH):
+            args = masked_cell(pick(sets, end, b), p, dev, true_values)
+            out_k = multi_circulant_bp_cuda(*args, ITERATIONS)
+            out_p = multi_circulant_bp_plain(*args, ITERATIONS)
             torch.cuda.synchronize()
             e_c, e_i, conv, it = out_k
-            conv_any = conv | out_p[2]
-            converged += int(conv_any.sum())
+            frames += b
             same = ((e_c == out_p[0]).all(dim=-1) & (e_i == out_p[1]).flatten(1).all(dim=-1)
                     & (it == out_p[3]) & (conv == out_p[2]))
-            diff_bits = int((e_c != out_p[0]).sum(dim=-1)[~conv_any].sum()
-                            + (e_i != out_p[1]).flatten(1).sum(dim=-1)[~conv_any].sum())
-            k8_err = max([k8_err] + [max(int((e_c[f] - out_p[0][f]).abs().max()),
-                                         int((e_i[f] - out_p[1][f]).abs().max())) for f in range(b) if conv_any[f]])
-            ms_k = _ms(lambda: multi_circulant_bp_cuda(*args, ATTACK_ITER))
-            ms_p = _ms(lambda: multi_circulant_bp_plain(*args, ATTACK_ITER), repeats=1)
+            diff_bits = int((e_c != out_p[0]).sum() + (e_i != out_p[1]).sum())
+            k8_err = max(k8_err, int((e_c - out_p[0]).abs().max()), int((e_i - out_p[1]).abs().max()))
+            ms_k = _ms(lambda: multi_circulant_bp_cuda(*args, ITERATIONS))
+            ms_p = _ms(lambda: multi_circulant_bp_plain(*args, ITERATIONS), repeats=1)
             iters = int(it.max())
             nbytes = _nbytes(*args, e_c.to(torch.uint8), e_i.to(torch.uint8), conv, it)
             bound = multi_circulant_bound_ms(int(it.sum()), p, w, N, nbytes)
-            blocks = multi_circulant_blocks(b, p, N)
+            o = occ[p, "product_sum"]
+            cfg = multi_circulant_launch(b, p, N, o["blocks_per_sm"], o["sms"])
             k2 = ""
             if p == 1:
                 k2_args = (args[0], args[1][:, 0].contiguous(), args[2][:, 0].contiguous(), args[3][0].tolist(),
-                           ATTACK_ITER, "product_sum")
+                           ITERATIONS, "product_sum")
                 e2, conv2, it2 = circulant_bp_cuda(*k2_args)
                 torch.cuda.synchronize()
                 same2 = (torch.cat([e_c, e_i[:, 0]], dim=-1) == e2).all(dim=-1) & (it == it2) & (conv == conv2)
@@ -1076,46 +1049,51 @@ def _attack_phases(dev, tag):
                     raise SystemExit(f"K8 {label} P=1 batch {b}: decisions differ from K2 on a converged frame")
             print(f"phase 16 K8 {label}{'' if b == 1 else f' (the {b} decodes at that end)'} P={p} batch {b}: "
                   f"converged {int(conv.sum())}/{b} (plain {int(out_p[2].sum())}), iterations {it.tolist()}; "
-                  f"equal to plain on {int(same.sum())}/{b} frames, on every converged one: "
-                  f"{bool(same[conv_any].all())}; unconverged frames that differ: {int((~same & ~conv_any).sum())} "
-                  f"({diff_bits} decision bits); "
+                  f"equal to plain on {int(same.sum())}/{b} frames ({diff_bits} decision bits differ); "
                   f"K8 {ms_k:.3f} ms ({ms_k / max(iters, 1):.4f} an iteration), plain {ms_p:.3f} ms "
-                  f"({ms_p / max(iters, 1):.4f}){k2}; {blocks['check']} + {blocks['variable']} blocks of "
-                  f"{blocks['threads']} a sweep; bound {bound[0]:.4f} ms ({bound[1]}), K8 at "
-                  f"{100 * bound[0] / ms_k:.2f}% {tag}")
-            if not bool(same[conv_any].all()):
-                raise SystemExit(f"K8 {label} P={p} batch {b}: kernel and plain disagree on a converged frame")
-            if not torch.equal(it, out_p[3]):
-                raise SystemExit(f"K8 {label} P={p} batch {b}: iteration counts differ from plain: {it.tolist()} "
-                                 f"against {out_p[3].tolist()}")
-            if label == "2850 rows" and p == 1 and b == 1 and not bool(same.all()):
-                # the attack's own recovery decode: K8 sums in the plain version's order, so it gives the same
-                # bits even on a frame that runs all its iterations unconverged
-                raise SystemExit(f"K8 {label} P=1 batch 1: {diff_bits} decision bits differ from plain")
+                  f"({ms_p / max(iters, 1):.4f}){k2}; grid {cfg.grid} blocks of {cfg.threads} for {cfg.row_tiles} "
+                  f"check + {cfg.var_tiles} variable tiles, {o['blocks_per_sm']} blocks an SM; bound "
+                  f"{bound[0]:.4f} ms ({bound[1]}), K8 at {100 * bound[0] / ms_k:.2f}% {tag}")
+            if not bool(same.all()):
+                # K8 sums in the plain version's order, so it gives the same bits even on a frame that runs all
+                # its iterations unconverged
+                raise SystemExit(f"K8 {label} P={p} batch {b}: {int((~same).sum())} frames differ from plain "
+                                 f"({diff_bits} decision bits; iterations {it.tolist()} against {out_p[3].tolist()})")
             if true_values and b == 1 and not bool(conv.all()):
                 raise SystemExit("K8: the recovery's rows at their true values did not converge")
             if label == "2850 rows" and p == 1 and b == 1:
                 main = (ms_k, ms_p, bound)  # the attack's own recovery decode
-    print(f"phase 16 K8: {converged} converged frames held equal to plain; max_abs_err on them {k8_err}")
+    print(f"phase 16 K8: all {frames} frames of the {2 * len(cells())} cells equal to plain; max_abs_err {k8_err}")
 
     # ---- phase 17: path 5 through the public API
     torch.cuda.synchronize()
     for kernel in (circulant_bp_cuda, multi_circulant_bp_cuda):
         kernel.launches = 0
     runs = {}
+    lib = circulant_cuda._multi_lib
     for backend, device in (("circulant", dev), ("general", dev), ("padded", dev), ("circulant", "cpu")):
+        timed = _TimedLib(lib()) if backend == "circulant" and device == dev else None
+        if timed:
+            circulant_cuda._multi_lib = lambda: timed
         t0 = time.perf_counter()
-        ok, tracking = simulate_hqc_idealized_oracle(make_random_state(0), decode_backend=backend, device=device,
-                                                     **ATTACK)
-        if device == dev:
-            torch.cuda.synchronize()
+        try:
+            ok, tracking = simulate_hqc_idealized_oracle(make_random_state(0), decode_backend=backend, device=device,
+                                                         **ATTACK)
+            if device == dev:
+                torch.cuda.synchronize()
+        finally:
+            circulant_cuda._multi_lib = lib
         wall = time.perf_counter() - t0
         runs[backend, str(device)] = (ok, tracking)
-        if backend == "circulant" and device == dev:
+        k8 = ""
+        if timed:
             launches = multi_circulant_bp_cuda.launches
+            k8_s = sum(start.elapsed_time(end) for start, end in timed.events) / 1e3
+            k8 = (f" (K8's own device time {k8_s:.4f} s over its {len(timed.events)} launches, the rest "
+                  f"{tracking.decode_seconds - k8_s:.4f} s)")
         print(f"phase 17 attack decode_backend {backend} on {device}: success {ok}, {tracking.num_oracle_calls} "
               f"oracle calls, {len(tracking.decoder_stats)} decodes, {wall:.2f} s, {tracking.decode_seconds:.2f} s "
-              f"inside the decodes, {wall - tracking.decode_seconds:.2f} s outside"
+              f"inside the decodes{k8}, {wall - tracking.decode_seconds:.2f} s outside"
               + (f" {tag}" if device == dev else ""))
         if not ok:
             raise SystemExit(f"the {backend} attack on {device} did not recover the key")

@@ -24,7 +24,9 @@ raises.  Each wrapper counts its kernel launches in ``.launches``.
 device's shared-memory limits (:func:`smem_limits`): where the variable
 totals live (shared or device memory), threads a block and the padded plane
 stride; :func:`circulant_lean_launch` is the lean pair's (how many variables
-a thread stages in shared memory).
+a thread stages in shared memory); :func:`multi_circulant_launch` is K8's
+cooperative grid for the card's resident blocks
+(:func:`multi_circulant_occupancy`).
 
 Unlike the TPU kernels, the batch need not be a multiple of a tile and the
 shifts are runtime data.  K1/K2 keep f32 messages (their TPU kernels store
@@ -567,37 +569,85 @@ def circulant_fer_lean_cuda(errors, shifts, error_rate, max_iter, method="produc
 circulant_fer_lean_cuda.launches = 0
 
 
+# K8 is one cooperative launch a decode of MULTI_THREADS-thread blocks, each
+# a check (or variable) a thread; a block stages the shifts [P, w] (at most
+# MULTI_MAX_SHIFTS) and a bitmask of the running frames (at most
+# MULTI_MAX_BATCH) in shared memory.
+MULTI_THREADS = 256
+MULTI_MAX_SHIFTS = 10240
+MULTI_MAX_BATCH = 65535
+
+
+class MultiLaunch(NamedTuple):
+    """K8's cooperative launch for one (batch, P, N)."""
+
+    grid: int  # blocks of the launch: the work tiles or the co-resident blocks, the fewer
+    row_tiles: int  # work tiles of the check and syndrome sweeps: (frame, circulant block, row tile)
+    var_tiles: int  # work tiles of the variable sweep: (frame, variable tile)
+    threads: int  # threads a block, rows (or variables) a tile
+
+
+def multi_circulant_launch(batch, p, n, blocks_per_sm, sms):
+    """K8's launch for ``batch`` frames of ``p`` circulant blocks of size
+    ``n`` on a device that holds ``blocks_per_sm`` of its blocks on each of
+    ``sms`` SMs (:func:`multi_circulant_occupancy`).
+
+    A cooperative launch needs every block resident, so the grid is the
+    co-resident blocks where the check sweep has more tiles than that, and
+    the tiles otherwise; block ``x`` of a grid of ``G`` walks the tiles
+    ``x, x + G, ...``."""
+    batch, p, n, resident = int(batch), int(p), int(n), int(blocks_per_sm) * int(sms)
+    if batch < 1 or p < 1 or n < 1:
+        raise ValueError(f"need batch, p and n >= 1, got batch={batch}, p={p}, n={n}")
+    if resident < 1:
+        raise ValueError(f"the device holds no K8 block resident ({blocks_per_sm} a SM on {sms} SMs)")
+    tiles = -(-n // MULTI_THREADS)
+    return MultiLaunch(min(batch * p * tiles, resident), batch * p * tiles, batch * tiles, MULTI_THREADS)
+
+
 @functools.cache
 def _multi_lib():
     from ._build import load
 
     lib = load("circulant_multi")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.multi_circulant_bp_decode.argtypes = [p, p, p, p, i, i, i, i, i, i, i, p, p, p, p, p, p, p, p]
+    lib.multi_circulant_bp_decode.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, p, p, p, p, p, p, p, p]
     lib.multi_circulant_bp_decode.restype = i
-    lib.multi_circulant_bp_blocks.argtypes = [i, i, i, p]
-    lib.multi_circulant_bp_blocks.restype = None
+    lib.multi_circulant_bp_occupancy.argtypes = [i, i, i, i, p]
+    lib.multi_circulant_bp_occupancy.restype = i
     return lib
 
 
-def multi_circulant_blocks(batch, p, n):
-    """Blocks a launch of K8's sweeps takes: {"check" (also the syndrome
-    sweep), "variable", "threads" (a block)}, from the built library."""
-    out = (ctypes.c_int * 3)()
-    _multi_lib().multi_circulant_bp_blocks(int(batch), int(p), int(n), out)
-    return {"check": out[0], "variable": out[1], "threads": out[2]}
+@functools.cache
+def _multi_occupancy(device_index, w, method, p, batch):
+    out = (ctypes.c_int * 4)()
+    with torch.cuda.device(device_index):
+        rc = _multi_lib().multi_circulant_bp_occupancy(int(w), _METHODS[method], int(p), int(batch), out)
+    if rc != 0:
+        raise RuntimeError(f"multi_circulant_bp_occupancy failed: CUDA error {rc}")
+    return {"blocks_per_sm": out[0], "sms": out[1], "cooperative": bool(out[2]), "threads": out[3]}
+
+
+def multi_circulant_occupancy(w, method="product_sum", p=1, device="cuda", batch=1):
+    """The card's limits for K8's instance of (w, method) with ``p`` blocks'
+    shifts and ``batch`` frames' bitmask in shared memory: {"blocks_per_sm"
+    (occupancy calculator), "sms", "cooperative" (the card can launch
+    cooperatively), "threads" (a block)}.  Needs a CUDA device."""
+    if method not in _METHODS:
+        raise ValueError(f"unknown bp method: {method}")
+    device = torch.device(device)
+    return dict(_multi_occupancy(device.index if device.index is not None else torch.cuda.current_device(),
+                                 int(w), method, int(p), int(batch)))
 
 
 def multi_circulant_ptxas():
-    """ptxas's ``-v`` report on K8's kernels: {(kernel, MAXW or None,
-    method or None): (registers, spill bytes stored and loaded)} a thread.
-    Builds the library if needed (needs nvcc)."""
+    """ptxas's ``-v`` report on K8's instances: {(MAXW, method): (registers,
+    spill bytes stored and loaded)} a thread.  Builds the library if needed
+    (needs nvcc)."""
     from ._build import build
 
-    return _ptxas_report(
-        build("circulant_multi"), r"multi_(init|check|var|syndrome|status|final)_kernel(?:ILi(\d+)ELb(\d)E)?",
-        lambda m: (m[1], int(m[2]) if m[2] else None,
-                   None if m[3] is None else ("min_sum" if m[3] == "1" else "product_sum")))
+    return _ptxas_report(build("circulant_multi"), r"multi_decode_kernelILi(\d+)ELb(\d)E",
+                         lambda m: (int(m[1]), "min_sum" if m[2] == "1" else "product_sum"))
 
 
 def _check_multi(prior_c, prior_i, syndrome, shifts, max_iter, method):
@@ -638,33 +688,42 @@ def multi_circulant_bp_cuda(prior_c, prior_i, syndrome, shifts, max_iter, method
     array; one circulant's support offsets a block).  Returns (e_c [B, N] int32, e_i [B, P, N]
     int32, conv [B] bool, iters [B] int32), ``iters`` being the iteration at
     which each frame first converged, or the number run if it never did.
+
+    One cooperative launch on the current stream, of the blocks that
+    :func:`multi_circulant_launch` picks from the card's limits, and no
+    synchronisation; a launch the card refuses raises.
     """
     device, b, p, n, k = _check_multi(prior_c, prior_i, syndrome, shifts, max_iter, method)
     if device.type == "cpu":
         return multi_circulant_bp_plain(prior_c, prior_i, syndrome, k, max_iter, method)
-    if b * p > 65535:
-        raise ValueError(f"B * P = {b * p} above the kernel's 65,535 rows of blocks")
+    w = k.shape[1]
+    if p * w > MULTI_MAX_SHIFTS or b > MULTI_MAX_BATCH:
+        raise ValueError(f"P * W = {p * w} shifts or B = {b} frames above the kernel's {MULTI_MAX_SHIFTS} and "
+                         f"{MULTI_MAX_BATCH}")
 
     stream = _cuda_stream(device)
-    w = k.shape[1]
     ld = _round_up(n, 32)
     with torch.cuda.device(device):
         syn = syndrome.to(torch.uint8).contiguous()
         c2v = torch.empty((b, p, w, ld), dtype=torch.float32, device=device)
         tot = torch.empty((b, n), dtype=torch.float32, device=device)
-        state = torch.empty((2 * b + 1,), dtype=torch.int32, device=device)
+        flags = torch.empty((2 * b,), dtype=torch.int32, device=device)
         e_c = torch.empty((b, n), dtype=torch.uint8, device=device)
         e_i = torch.empty((b, p, n), dtype=torch.uint8, device=device)
         conv = torch.empty((b,), dtype=torch.uint8, device=device)
         iters = torch.empty((b,), dtype=torch.int32, device=device)
         if b:
+            occ = multi_circulant_occupancy(w, method, p, device, b)
+            grid = multi_circulant_launch(b, p, n, occ["blocks_per_sm"], occ["sms"]).grid
             rc = _multi_lib().multi_circulant_bp_decode(
                 prior_c.data_ptr(), prior_i.data_ptr(), syn.data_ptr(), k.data_ptr(), p, w, n, ld, b,
-                int(max_iter), _METHODS[method], c2v.data_ptr(), tot.data_ptr(),
-                state.data_ptr(), e_c.data_ptr(), e_i.data_ptr(), conv.data_ptr(), iters.data_ptr(), stream,
+                int(max_iter), _METHODS[method], int(grid), c2v.data_ptr(), tot.data_ptr(),
+                flags.data_ptr(), e_c.data_ptr(), e_i.data_ptr(), conv.data_ptr(), iters.data_ptr(), stream,
             )
             if rc != 0:
-                raise RuntimeError(f"multi_circulant_bp_decode failed: CUDA error {rc}")
+                raise RuntimeError(f"multi_circulant_bp_decode failed: CUDA error {rc}"
+                                   + (" (cooperative launch too large: grid above the co-resident blocks)"
+                                      if rc == 720 else ""))
             multi_circulant_bp_cuda.launches += 1
     return e_c.to(torch.int32), e_i.to(torch.int32), conv.bool(), iters
 

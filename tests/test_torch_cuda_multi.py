@@ -12,11 +12,13 @@ import torch
 
 from sca_ldpc_tpu_torch.codes import random_circulant_first_row
 from sca_ldpc_tpu_torch.models.hqc import sparse_times_sparse
+from sca_ldpc_tpu_torch.ops.kernels import circulant_cuda
 from sca_ldpc_tpu_torch.ops.kernels.circulant_cuda import (
     circulant_bp_cuda,
-    multi_circulant_blocks,
     multi_circulant_bp_cuda,
     multi_circulant_bp_plain,
+    multi_circulant_launch,
+    multi_circulant_occupancy,
     multi_circulant_ptxas,
 )
 
@@ -79,7 +81,7 @@ def _check_equal(out_k, out_p):
 
 
 @pytest.mark.parametrize("method", METHODS)
-@pytest.mark.parametrize("p,b", [(1, 1), (1, 16), (3, 1), (3, 16), (8, 1), (8, 16)])
+@pytest.mark.parametrize("p,b", [(1, 1), (1, 16), (1, 17), (3, 1), (3, 16), (3, 17), (8, 1), (8, 16), (8, 17)])
 def test_kernel_matches_plain(cuda, p, b, method):
     n, w = 1021, 20
     args = _to(masked_frames(n, w, p, b, 300, seed=p), cuda)
@@ -96,12 +98,12 @@ def test_kernel_matches_plain(cuda, p, b, method):
 @pytest.mark.parametrize("max_iter", [1, 3, 5, 100])
 def test_unconverged_frames_and_the_exit_test(cuda, max_iter):
     """Few measured rows: frames run all their iterations beside frames that
-    converge.  The kernel reads how many frames still run only every few
-    iterations and stops at 0; these max_iter end the decode before the first
-    read, between two and on one.  A batch whose frames all converge (the
-    second) exits at a read point after its last frame converged, yet the
-    outputs of both batches are the plain version's, which tests every
-    iteration."""
+    converge.  The kernel decides the exit on the card after every
+    iteration, from the bitmask of the frames whose syndrome still fails
+    (their bad flags), and skips a frame once it converged; these max_iter
+    end the decode before or after the batch's frames converge.  A batch whose frames all converge
+    (the second) leaves the loop at the iteration its last frame converged.
+    The outputs of both batches are the plain version's."""
     n, w = 1021, 20
     few = masked_frames(n, w, 1, 4, 50, seed=7)
     many = masked_frames(n, w, 1, 4, 400, seed=7)
@@ -114,6 +116,60 @@ def test_unconverged_frames_and_the_exit_test(cuda, max_iter):
     _check_equal(out_k, multi_circulant_bp_plain(*args, max_iter))
     if max_iter == 100:
         assert bool(out_k[2].all())
+
+
+def _force_grid(monkeypatch, grid):
+    """Have the wrapper launch ``grid`` blocks in place of the grid that
+    ``multi_circulant_launch`` picks from the card's limits."""
+    pick = circulant_cuda.multi_circulant_launch
+    monkeypatch.setattr(circulant_cuda, "multi_circulant_launch", lambda *a: pick(*a)._replace(grid=grid))
+
+
+def _mixed_batch(cuda):
+    """8 frames over P = 2 blocks that converge at different iterations, and
+    two that never do."""
+    n, w = 1021, 20
+    parts = [masked_frames(n, w, 2, 2, zeros, seed=5) for zeros in (40, 120, 200, 400)]
+    arrays = [np.concatenate([part[i] for part in parts]) for i in range(3)] + [parts[0][3]]
+    return _to(arrays, cuda)
+
+
+@pytest.mark.parametrize("method", METHODS)
+@pytest.mark.parametrize("grid", ["1", "2", "max"])
+@pytest.mark.parametrize("max_iter", [0, 1, 2, 3, 5, 100])
+def test_every_iteration_is_an_exit_point(cuda, monkeypatch, max_iter, grid, method):
+    """Equal to plain at every max_iter, on a batch whose frames converge at
+    different iterations, with the grid forced to 1 block, 2 blocks (many
+    tiles a block: many rows a thread and many frames a block) and the
+    co-resident maximum (more blocks than tiles)."""
+    args = _mixed_batch(cuda)
+    occ = multi_circulant_occupancy(20, method, 2, cuda)
+    g = {"1": 1, "2": 2, "max": occ["blocks_per_sm"] * occ["sms"]}[grid]
+    out_p = multi_circulant_bp_plain(*args, max_iter, method)
+    _force_grid(monkeypatch, g)
+    before = multi_circulant_bp_cuda.launches
+    out_k = multi_circulant_bp_cuda(*args, max_iter, method)
+    torch.cuda.synchronize()
+    assert multi_circulant_bp_cuda.launches == before + 1
+    _check_equal(out_k, out_p)
+    if max_iter == 100:
+        assert len(set(out_p[3].tolist())) >= 3  # frames converge at different iterations
+
+
+def test_refused_cooperative_launch_raises(cuda, monkeypatch):
+    """A grid above the blocks the card holds resident: the cooperative
+    launch is refused, the C entry returns the error and the wrapper
+    raises; nothing falls back, and the next launch runs."""
+    args = _mixed_batch(cuda)
+    occ = multi_circulant_occupancy(20, "product_sum", 2, cuda)
+    assert occ["cooperative"]
+    before = multi_circulant_bp_cuda.launches
+    with monkeypatch.context() as m:
+        _force_grid(m, occ["blocks_per_sm"] * occ["sms"] + 1)
+        with pytest.raises(RuntimeError, match="multi_circulant_bp_decode failed"):
+            multi_circulant_bp_cuda(*args, 5)
+    assert multi_circulant_bp_cuda.launches == before
+    _check_equal(multi_circulant_bp_cuda(*args, 5), multi_circulant_bp_plain(*args, 5))
 
 
 @pytest.mark.parametrize("method", METHODS)
@@ -140,11 +196,14 @@ def test_zero_and_one_iteration(cuda, max_iter):
 
 
 def test_launch_shape_and_registers(cuda):
-    blocks = multi_circulant_blocks(1, 1, 17669)
-    assert blocks["check"] > 1 and blocks["variable"] > 1  # one frame spread over many blocks
-    assert blocks["check"] == blocks["variable"] == -(-17669 // blocks["threads"])
+    occ = multi_circulant_occupancy(20, "product_sum", 1, cuda)
+    assert occ["cooperative"] and occ["blocks_per_sm"] >= 2 and occ["sms"] >= 1
+    cfg = multi_circulant_launch(1, 1, 17669, occ["blocks_per_sm"], occ["sms"])
+    assert cfg.grid == cfg.row_tiles == -(-17669 // cfg.threads) > 1  # one frame spread over many blocks
+    cfg = multi_circulant_launch(16, 8, 17669, occ["blocks_per_sm"], occ["sms"])
+    assert cfg.grid == occ["blocks_per_sm"] * occ["sms"] < cfg.row_tiles  # persistent: the blocks walk the tiles
     rep = multi_circulant_ptxas()
-    assert {k[0] for k in rep} == {"init", "check", "var", "syndrome", "status", "final"}
+    assert {m for _mw, m in rep} == {"product_sum", "min_sum"} and len(rep) == 12
     assert all(spill == 0 for _regs, spill in rep.values())
 
 
