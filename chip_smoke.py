@@ -17,7 +17,12 @@ K4, which stores its message planes in bf16 as the TPU's lean kernel does,
 and the HQC-128 FER step through K4.  Path 5 is the HQC-128 key-recovery
 attack with the idealized oracle (seed 0, the fixture key, a decode every 50
 checks, circulant weight 20) through its masked multi-circulant decode, the
-CUDA kernel K8, and through the general binary BP decode.
+CUDA kernel K8, and through the general binary BP decode; path 6 the batched
+multi-instance attack, whose decode rounds are one K8 launch on per-instance
+shifts [I, P, W]; path 7 the attack against the measured timing oracle
+(cycle-timed decapsulations on the host, "circulant" decodes on the card);
+path 8 binary FER simulation on a (3, 6)-regular LDPC code of 300 columns
+(the reference's regular_ldpc_code command).
 
 Phases (each prints one line; any failure exits non-zero):
   1. build the CUDA kernels from csrc/ (one nvcc per source, in parallel)
@@ -133,7 +138,40 @@ Phases (each prints one line; any failure exits non-zero):
      "circulant" (K8), "general" and "padded" on the card, and "circulant"
      on the CPU, whose success sequence and oracle calls the card run must
      equal; success, oracle calls, decodes, wall s, s inside the decodes,
-     and of those K8's own device time (CUDA events around each launch).
+     and of those K8's own device time (CUDA events around each launch);
+ 18. K8 with per-instance shifts [I, P, W] on batched rounds built from the
+     attack's recorded check sets (tools/attack_cells.instance_cell: each
+     instance its own circulants and block count, padded to the round's
+     largest), I = 4 (the last 4 decodes' sets, P = 1, 3, 8, 2) and I = 16
+     (the first 8 and last 8 decodes' sets, P = 1 to 8): decisions, conv
+     and iteration counts equal to plain and to one [P, W] launch an
+     instance on every frame; [B, P, W] with equal rows bit-equal to the
+     [P, W] launch (phase 16's 2,850-row cell at P = 3, batch 16); ms of
+     the one launch against the I launches (the JAX executor's way), plain
+     ms, bound and share; the one launch with the shifts staged a tile at a
+     time (stage 2, forced) beside it;
+ 19. path 6 through the public API, with the launch counts reset before and
+     read after: simulate_hqc_attacks_batched, 4 seeds (0-3), "circulant",
+     every instance on the fixture key: each recovers it, with the success
+     sequence and oracle calls of its own simulate_hqc_idealized_oracle run
+     on the card; K8 launched once a round; wall s, the rounds' s, K8's
+     device time;
+ 20. path 7: hqc_eval_oracle at tiny counts (the sweep's mechanics), then
+     simulate_hqc_idealized_oracle with oracle_backend "timing" and
+     "circulant" decodes on the card, run to key recovery (launch counts
+     reset before and read after), with the cycle counter modelled
+     (tools/attack_cells.ModelledClock: the plaintext's seed expansions
+     times the card host's profiled cost, plus seeded noise) so that the
+     run is the same on every host: calibration and its guard (measure 64,
+     profile 2^13, 100 trials a class), the differential decisions,
+     recalibration, the Bayesian amplification with CERTAINTY_CAP; the key
+     recovered, at least one decode, each one K8 launch; decisions,
+     decapsulations, decodes and s.  The host's own counter is measured
+     by tools/timing_calibration.py, not here;
+ 21. path 8: simulate_frame_error_rate on
+     make_regular_ldpc_parity_check_matrix(300, 150, 3, 6, seed 0) on the
+     card at rate 0.02 (frames/s, FER) and 0.07 (FER near 0.25), each
+     within 3 binomial sigma of the port's CPU run of the same call.
 
 Then one JSON line of per-kernel results (time, plain version's time, the
 bound from ops/kernels/bounds.py with the work this run's inputs needed, and
@@ -390,6 +428,7 @@ def main():
     lean = _lean_phases(dev, tag, lib_paths["circulant_lean"], lay)
     _k1_sweep(dev, tag, lay)
     attack = _attack_phases(dev, tag)
+    _fer_phase(dev, tag)
 
     src = "sca_ldpc_tpu_torch/csrc/circulant_bp.cu"
     # K1's first iteration needs no phi a message under its one constant prior
@@ -1107,8 +1146,221 @@ def _attack_phases(dev, tag):
         raise SystemExit("the circulant attack on the card and on the CPU disagree")
     if launches != len(card.decoder_stats):
         raise SystemExit(f"K8 launched {launches} times for {len(card.decoder_stats)} decodes of path 5")
+    k8_err = max(k8_err, _instance_phase(dev, tag, sets))
+    launches += _batched_phase(dev, tag)
+    launches += _timing_phase(dev, tag)
+    print(f"K8 launches on the main paths (phases 17, 19, 20): {launches}")
     return [_entry("multi_circulant_bp_cuda", "sca_ldpc_tpu_torch/csrc/circulant_multi.cu",
                    "sca_ldpc_tpu/ops/circulant_bp.py:126", launches, k8_err, *main)]
+
+
+def _instance_phase(dev, tag, sets):
+    """Phase 18: K8 with per-instance shifts on batched rounds; returns its
+    largest absolute difference from plain."""
+    from sca_ldpc_tpu_torch.ops.kernels import circulant_cuda, multi_circulant_bp_cuda, multi_circulant_bp_plain
+    from sca_ldpc_tpu_torch.ops.kernels.bounds import multi_circulant_bound_ms
+    from sca_ldpc_tpu_torch.ops.kernels.circulant_cuda import (
+        multi_circulant_launch,
+        multi_circulant_occupancy,
+        multi_circulant_stage,
+    )
+    from sca_ldpc_tpu_torch.tools.attack_cells import ITERATIONS, N as N128, instance_cell, masked_cell, pick
+
+    w, err = W, 0
+    rounds = (("the last 4 decodes", pick(sets, "last", 4), (1, 3, 8, 2)),
+              ("the first 8 and last 8 decodes", pick(sets, "first", 8) + pick(sets, "last", 8),
+               (1, 2, 3, 4, 5, 6, 7, 8) * 2))
+    for label, round_sets, ps in rounds:
+        t0 = time.perf_counter()
+        args = instance_cell(round_sets, ps, dev)
+        i_n, p_pad = args[2].shape[0], args[2].shape[1]
+        build_s = time.perf_counter() - t0
+        out_k = multi_circulant_bp_cuda(*args, ITERATIONS)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out_p = multi_circulant_bp_plain(*args, ITERATIONS)
+        end.record()
+        torch.cuda.synchronize()
+        plain_ms = start.elapsed_time(end)
+        solo = [multi_circulant_bp_cuda(*(x[f:f + 1] for x in args[:3]), args[3][f], ITERATIONS) for f in range(i_n)]
+        solo = tuple(torch.cat(parts) for parts in zip(*solo))
+        torch.cuda.synchronize()
+        same_p = [bool(torch.equal(a, b)) for a, b in zip(out_k, out_p)]
+        same_s = [bool(torch.equal(a, b)) for a, b in zip(out_k, solo)]
+        err = max(err, int((out_k[0] - out_p[0]).abs().max()), int((out_k[1] - out_p[1]).abs().max()))
+        ms_one = _ms(lambda: multi_circulant_bp_cuda(*args, ITERATIONS))
+        ms_each = _ms(lambda: [multi_circulant_bp_cuda(*(x[f:f + 1] for x in args[:3]), args[3][f], ITERATIONS)
+                               for f in range(i_n)])
+        # the same launch with the shifts staged a tile at a time (stage 2 forced), in turns 1, 2, 2, 1
+        chosen = circulant_cuda.multi_circulant_stage
+        circulant_cuda.multi_circulant_stage = lambda b, p, w, per_frame: 2 if per_frame else 0
+        try:
+            out_2 = multi_circulant_bp_cuda(*args, ITERATIONS)
+            ms_tile = [_ms(lambda: multi_circulant_bp_cuda(*args, ITERATIONS)) for _turn in range(2)]
+        finally:
+            circulant_cuda.multi_circulant_stage = chosen
+        ms_whole = [ms_one, _ms(lambda: multi_circulant_bp_cuda(*args, ITERATIONS))]
+        torch.cuda.synchronize()
+        same_2 = [bool(torch.equal(a, b)) for a, b in zip(out_k, out_2)]
+        e_c, e_i, conv, it = out_k
+        nbytes = _nbytes(*args, e_c.to(torch.uint8), e_i.to(torch.uint8), conv, it)
+        bound = multi_circulant_bound_ms(int(it.sum()), p_pad, w, N128, nbytes)
+        stage = multi_circulant_stage(i_n, p_pad, w, True)
+        occ = multi_circulant_occupancy(w, "product_sum", p_pad, dev, i_n, stage)
+        cfg = multi_circulant_launch(i_n, p_pad, N128, occ["blocks_per_sm"], occ["sms"])
+        print(f"phase 18 K8 per-instance shifts, {label}: I={i_n}, P={list(ps)} padded to {p_pad} (stage {stage}: "
+              f"{i_n * p_pad * w} shifts staged), built in {build_s:.1f} s; converged {int(conv.sum())}/{i_n}, "
+              f"iterations {it.tolist()}; equal to plain (e_c, e_i, conv, iters) {same_p}, to {i_n} [P, W] "
+              f"launches {same_s}; one [I, P, W] launch {ms_one:.3f} ms against {i_n} batch-1 launches "
+              f"{ms_each:.3f} ms ({ms_each / ms_one:.2f}x), plain {plain_ms:.1f} ms; grid {cfg.grid} blocks, "
+              f"{occ['blocks_per_sm']} an SM; bound {bound[0]:.4f} ms ({bound[1]}), K8 at "
+              f"{100 * bound[0] / ms_one:.2f}% {tag}")
+        print(f"phase 18 K8 staging, {label}: shifts staged whole (stage 1) {ms_whole[0]:.3f} / {ms_whole[1]:.3f} ms, "
+              f"a tile at a time (stage 2, forced) {ms_tile[0]:.3f} / {ms_tile[1]:.3f} ms (turns 1, 2, 2, 1); stage 2 "
+              f"equal to stage 1 {same_2} {tag}")
+        if not all(same_p) or not all(same_s) or not all(same_2):
+            raise SystemExit(f"K8 per-instance shifts ({label}): differs from plain, from the [P, W] launches or "
+                             "between the stagings")
+    args = masked_cell(pick(sets, "last", 16), 3, dev)
+    shared = multi_circulant_bp_cuda(*args, ITERATIONS)
+    rows = multi_circulant_bp_cuda(*args[:3], args[3].expand(16, -1, -1).contiguous(), ITERATIONS)
+    torch.cuda.synchronize()
+    equal = [bool(torch.equal(a, b)) for a, b in zip(shared, rows)]
+    print(f"phase 18 K8 [B, P, W] with equal rows against the [P, W] launch (2850 rows, P=3, batch 16): bit-equal "
+          f"{equal}")
+    if not all(equal):
+        raise SystemExit("K8: [B, P, W] shifts with equal rows differ from the [P, W] launch")
+    return err
+
+
+def _batched_phase(dev, tag):
+    """Phase 19: the batched attack through the public API; returns K8's launches."""
+    from sca_ldpc_tpu_torch.models.hqc import batched, simulate_hqc_attacks_batched, simulate_hqc_idealized_oracle
+    from sca_ldpc_tpu_torch.ops.kernels import circulant_cuda, multi_circulant_bp_cuda
+    from sca_ldpc_tpu_torch.tools.attack_cells import ATTACK, fixture_keys
+    from sca_ldpc_tpu_torch.utils import make_random_state
+
+    seeds = [0, 1, 2, 3]
+    kw = {k: v for k, v in ATTACK.items() if k not in ("keyfile", "error_rate", "param_set")}
+    with fixture_keys() as keypair:
+        executor = batched.BatchedCirculantDecodeExecutor(len(seeds), device=dev)
+        lib = circulant_cuda._multi_lib
+        timed = _TimedLib(lib())
+        circulant_cuda._multi_lib = lambda: timed
+        torch.cuda.synchronize()
+        multi_circulant_bp_cuda.launches = 0
+        t0 = time.perf_counter()
+        try:
+            results, rounds = simulate_hqc_attacks_batched(seeds, decode_backend="circulant", executor=executor,
+                                                           device=dev, **kw)
+            torch.cuda.synchronize()
+        finally:
+            circulant_cuda._multi_lib = lib
+        wall = time.perf_counter() - t0
+        launches = multi_circulant_bp_cuda.launches
+        k8_s = sum(start.elapsed_time(end) for start, end in timed.events) / 1e3
+        solo_s, same = 0.0, []
+        for seed, (ok, tracking) in zip(seeds, results):
+            t0 = time.perf_counter()
+            solo_ok, solo = simulate_hqc_idealized_oracle(make_random_state(seed), keypair=keypair,
+                                                          decode_backend="circulant", device=dev, **kw)
+            solo_s += time.perf_counter() - t0
+            successes = [[d["success"] for d in t.decoder_stats] for t in (tracking, solo)]
+            same.append(ok and solo_ok and tracking.num_oracle_calls == solo.num_oracle_calls
+                        and successes[0] == successes[1])
+    print(f"phase 19 simulate_hqc_attacks_batched seeds {seeds} (circulant, fixture key): recovered "
+          f"{[ok for ok, _t in results]}, oracle calls {[t.num_oracle_calls for _ok, t in results]}, decodes "
+          f"{[len(t.decoder_stats) for _ok, t in results]}, {rounds} rounds, K8 launches {launches}; "
+          f"wall {wall:.2f} s, "
+          f"{executor.seconds:.2f} s in the rounds, K8's device time {k8_s:.4f} s; each equal to its solo run "
+          f"(success sequence, oracle calls) {same}, the 4 solo runs {solo_s:.2f} s {tag}")
+    if not all(same):
+        raise SystemExit("the batched attack: an instance did not recover the key or differs from its solo run")
+    if launches != rounds:
+        raise SystemExit(f"K8 launched {launches} times for {rounds} batched rounds")
+    return launches
+
+
+def _timing_phase(dev, tag):
+    """Phase 20: the timing oracle; returns K8's launches in its attack."""
+    import tempfile
+
+    from sca_ldpc_tpu_torch.models.hqc import Hqc128, simulate_hqc_idealized_oracle
+    from sca_ldpc_tpu_torch.models.hqc.eval_oracle import hqc_eval_oracle
+    from sca_ldpc_tpu_torch.ops.kernels import multi_circulant_bp_cuda
+    from sca_ldpc_tpu_torch.tools.attack_cells import ATTACK, ModelledClock
+    from sca_ldpc_tpu_torch.utils import make_random_state
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        acc = hqc_eval_oracle(make_random_state(3), keyfile=ATTACK["keyfile"], num_trials=3, max_log2_measurements=2,
+                              profile_measurements=2**6, state_file=f"{tmp}/state.json")
+        print(f"phase 20 hqc_eval_oracle at tiny counts (3 trials, 1-2 measurements, profile 2^6): accuracy {acc} "
+              f"in {time.perf_counter() - t0:.2f} s (mechanics only, no accuracy claimed)")
+    # The attack against the timing channel, run to key recovery: calibration and its guard, TimingChannel's
+    # differential decisions and recalibration, the Bayesian amplification with CERTAINTY_CAP, the decodes through
+    # K8. The cycle counter is modelled (ModelledClock, seeded), so the run is the same on every host; the host's
+    # own counter is measured by tools/timing_calibration.py.
+    settings = dict(timing_measure=64, timing_profile_measurements=2**13, timing_calibration_trials=100)
+    kw = dict(ATTACK, max_oracle_calls=None)
+    torch.cuda.synchronize()
+    multi_circulant_bp_cuda.launches = 0
+    t0 = time.perf_counter()
+    with ModelledClock(Hqc128, seed=0) as clock:
+        ok, tracking = simulate_hqc_idealized_oracle(make_random_state(0), oracle_backend="timing",
+                                                     decode_backend="circulant", device=dev, **settings, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = multi_circulant_bp_cuda.launches
+    ch, cal = tracking.timing_channel, tracking.timing_calibration
+    print(f"phase 20 timing-oracle attack (seed 0, fixture key, circulant, measure 64, profile 2^13, 100 calibration "
+          f"trials; modelled cycle counter, seed 0, cost {clock.cost} cycles an expansion, noise sigma "
+          f"{clock.sigma:.0f} + exponential {clock.tail:.0f}): profiled gap {ch.gap:.0f} cycles, margin {ch.margin:.0f}, calibrated "
+          f"acc_fail {cal['acc_fail']:.3f} acc_success {cal['acc_success']:.3f}; {tracking.num_oracle_calls} "
+          f"decisions, {ch.num_decaps} decapsulations a channel decision counts ({clock.decapsulations} modelled in "
+          f"all), live accuracy (fail, success) {ch.empirical_accuracy()}, {ch.num_recals} recalibrations; "
+          f"{len(tracking.decoder_stats)} decodes ({launches} K8 launches, {tracking.decode_seconds:.2f} s), "
+          f"recovered {ok}; {wall:.1f} s {tag}")
+    if not ok:
+        raise SystemExit("the timing-oracle attack did not recover the key")
+    if not tracking.decoder_stats or launches != len(tracking.decoder_stats):
+        raise SystemExit(f"the timing attack ran {len(tracking.decoder_stats)} decodes and {launches} K8 launches")
+    return launches
+
+
+def _fer_phase(dev, tag):
+    """Phase 21: binary FER simulation on the card against the port's CPU run,
+    at rate 0.02 (the reference's default operating point; the frames/s) and
+    at 0.07, where the FER is near 0.25 and 3 sigma catches a change in the
+    decoder's behaviour."""
+    from sca_ldpc_tpu_torch.channels import ErrorsProvider
+    from sca_ldpc_tpu_torch.codes import make_regular_ldpc_parity_check_matrix
+    from sca_ldpc_tpu_torch.sim import simulate_frame_error_rate
+    from sca_ldpc_tpu_torch.utils import make_random_state
+
+    H = make_regular_ldpc_parity_check_matrix(300, 150, 3, 6, make_random_state(0))
+    for rate, runs in ((0.02, {"cuda": 20480, "cpu": 4096}), (0.07, {"cuda": 20480, "cpu": 2048})):
+        ok, secs = {}, {}
+        for device in ("cuda", "cpu"):
+            rng = make_random_state(1)
+            if device == "cuda":
+                simulate_frame_error_rate(H, ErrorsProvider(rate, None, rng), 1024, rng, device=dev)  # warm-up
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ok[device] = simulate_frame_error_rate(H, ErrorsProvider(rate, None, rng), runs[device], rng,
+                                                   device=dev if device == "cuda" else "cpu")
+            secs[device] = time.perf_counter() - t0
+        fer = {d: 1 - ok[d] / runs[d] for d in ok}
+        pooled = max((ok["cuda"] + ok["cpu"]) / (runs["cuda"] + runs["cpu"]), 1 / runs["cpu"])
+        pooled = min(pooled, 1 - 1 / runs["cpu"])
+        sigma = np.sqrt(pooled * (1 - pooled) * (1 / runs["cuda"] + 1 / runs["cpu"]))
+        print(f"phase 21 simulate_frame_error_rate (3, 6)-regular n=300 code, rate {rate}, max_iter n, batch 1024: "
+              f"card {runs['cuda']} frames FER {fer['cuda']:.5f} at {runs['cuda'] / secs['cuda']:.1f} frames/s; CPU "
+              f"{runs['cpu']} frames FER {fer['cpu']:.5f} ({runs['cpu'] / secs['cpu']:.1f} frames/s); difference "
+              f"{abs(fer['cuda'] - fer['cpu']):.5f}, 3 sigma {3 * sigma:.5f} {tag}")
+        if abs(fer["cuda"] - fer["cpu"]) > 3 * sigma:
+            raise SystemExit(f"binary FER at rate {rate} on the card differs from the CPU run by more than 3 "
+                             "binomial sigma")
 
 
 if __name__ == "__main__":

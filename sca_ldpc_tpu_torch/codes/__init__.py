@@ -5,6 +5,8 @@ from .make_code import (
     flatten_matrix_parts,
     make_qary_qc_parity_check_matrix,
     make_qc_parity_check_matrix,
+    make_random_ldpc_parity_check_matrix,
+    make_random_ldpc_parity_check_matrix_with_identity,
     make_regular_ldpc_parity_check_matrix,
     make_regular_ldpc_parity_check_matrix_identity,
     random_circulant_first_row,
@@ -22,6 +24,8 @@ __all__ = [
     "make_qc_parity_check_matrix",
     "make_regular_ldpc_parity_check_matrix",
     "make_regular_ldpc_parity_check_matrix_identity",
+    "make_random_ldpc_parity_check_matrix",
+    "make_random_ldpc_parity_check_matrix_with_identity",
     "random_circulant_first_row",
     "CodeLayout",
     "CirculantLayout",

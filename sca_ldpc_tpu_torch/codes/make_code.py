@@ -128,6 +128,20 @@ def make_regular_ldpc_parity_check_matrix_identity(k, r, column_weight, row_weig
     )
 
 
+def make_random_ldpc_parity_check_matrix(n, weight, seed=None):
+    """Square circulant ``H_(n x n)`` whose first row has distance-spectrum
+    multiplicity <= 1 (reference: make_code.py:220-244)."""
+    first_row = distance_spectrum.gen_array_ds_multiplicity(n, weight, 1, make_random_state(seed))
+    return circulant(first_row)
+
+
+def make_random_ldpc_parity_check_matrix_with_identity(n, weight, seed=None):
+    """``[H_(n x n) | I_n]`` with H as in
+    :func:`make_random_ldpc_parity_check_matrix` (reference: make_code.py:248-273)."""
+    H0 = make_random_ldpc_parity_check_matrix(n, weight, seed)
+    return flatten_matrix_parts([H0, np.identity(n, dtype=int)])
+
+
 def random_circulant_first_row(n, weight, seed=None):
     """First row only of the DS-constrained random circulant — the memory-lean
     entry point for large N (HQC-256: N=57637), paired with

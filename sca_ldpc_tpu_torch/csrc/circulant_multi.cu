@@ -43,8 +43,14 @@
 // of the iteration at which it converged: the latched estimate.  No host
 // synchronisation and no copy to the host.
 //
-// Once a decode, not once an iteration: each block stages the shifts [P, w]
-// in shared memory (the running-frame bitmask after them).  Each thread
+// Once a decode, not once an iteration: each block stages the shifts in
+// shared memory (the running-frame bitmask after them).  They are [P, w],
+// shared by the batch, or [B, P, w], a set a frame (the batched attack's
+// round: frame b is instance b, decoded with its own circulants).  Staging
+// (Args::stage): 0 the shared [P, w]; 1 all B sets, where they fit in the
+// 48 KB a block takes without an opt-in (the wrapper's choice); 2 frame b's
+// shifts staged with each tile of frame b, a block barrier before and after
+// (a round too large to stage whole).  Each thread
 // issues all the gathers of its check (or of one circulant block's planes of
 // its variable) before it uses any, so a sweep waits for one round trip to
 // L2 a row, not w.
@@ -84,8 +90,9 @@ constexpr float kBig = 60.0f;
 constexpr float kMinSumAlpha = 0.75f;
 constexpr int kMaxW = 64;
 constexpr int kThreads = 256;       // threads a block: rows (or variables) a tile
-constexpr int kMaxShifts = 10240;   // P * w shifts in a block's shared memory (40 KB)
+constexpr int kMaxShifts = 10240;   // P * w shifts of a frame in a block's shared memory (40 KB)
 constexpr int kMaxBatch = 65535;    // frames: a bitmask of at most 8 KB beside the shifts
+constexpr int kMaxStaged = 12288;   // ints staged a block, shifts and bitmask (48 KB: no opt-in needed)
 constexpr int kBuckets = 6;
 
 __device__ __forceinline__ float phi(float x) {
@@ -105,7 +112,8 @@ struct Args {
   const float* prior_c;   // [B, N]
   const float* prior_i;   // [B, P, N]
   const uint8_t* syn;     // [B, P, N]
-  const int* shifts;      // [P, w] in [0, N)
+  const int* shifts;      // [P, w] (stage 0) or [B, P, w] (stages 1, 2) in [0, N)
+  int stage;              // 0 shared shifts; 1 every frame's staged; 2 a tile's staged with it
   int batch, p, w, n, ld;
   int tiles;              // row tiles of one (frame, block): ceil(N / kThreads)
   int max_iter;
@@ -117,6 +125,19 @@ struct Args {
   uint8_t* conv;          // [B] (output)
   int* iters;             // [B] iterations each frame ran (output)
 };
+
+// Frame b's shifts from circulant block pb on, in shared memory: staged once
+// a block (stages 0 and 1), or `count` of them staged now (stage 2; every
+// thread of the block calls it, for the tile the block is on).
+__device__ __forceinline__ const int* frame_shifts(const Args& a, int* ks, int b, int pb, int count) {
+  if (a.stage == 0) return ks + pb * a.w;
+  const size_t at = (static_cast<size_t>(b) * a.p + pb) * a.w;
+  if (a.stage == 1) return ks + at;
+  __syncthreads();  // the block's last tile has read the buffer
+  for (int q = threadIdx.x; q < count; q += kThreads) ks[q] = __ldg(a.shifts + at + q);
+  __syncthreads();
+  return ks;
+}
 
 // Check (b, pb, i), bp = b * P + pb, with its block's shifts k: the
 // extrinsic c2v of its w planes and its identity decision.
@@ -271,15 +292,18 @@ __device__ __forceinline__ int syndrome_wrong(const Args& a, const int* k, int b
 // registers (K2's buckets).  MIN_SUM: normalized min-sum, else product-sum.
 template <int MAXW, bool MIN_SUM>
 __global__ void multi_decode_kernel(const Args a) {
-  extern __shared__ int ks[];  // the shifts [P, w], then the running-frame bitmask
-  for (int q = threadIdx.x; q < a.p * a.w; q += kThreads) ks[q] = __ldg(a.shifts + q);
+  extern __shared__ int ks[];  // the staged shifts, then the running-frame bitmask
+  const int staged = (a.stage == 1 ? a.batch : 1) * a.p * a.w;
+  if (a.stage != 2) {
+    for (int q = threadIdx.x; q < staged; q += kThreads) ks[q] = __ldg(a.shifts + q);
+  }
   __syncthreads();
   cg::grid_group grid = cg::this_grid();
   const int n = a.n, tiles = a.tiles;
   const int row_tiles = a.batch * a.p * tiles, var_tiles = a.batch * tiles;
   const int g = blockIdx.x * kThreads + threadIdx.x, stride = gridDim.x * kThreads;
 
-  unsigned* const run = reinterpret_cast<unsigned*>(ks + a.p * a.w);  // bit b: frame b runs this iteration
+  unsigned* const run = reinterpret_cast<unsigned*>(ks + staged);  // bit b: frame b runs this iteration
   const int words = (a.batch + 31) / 32;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   for (int x = threadIdx.x; x < words; x += kThreads) run[x] = ~0u;  // every frame runs iteration 0
@@ -296,24 +320,27 @@ __global__ void multi_decode_kernel(const Args a) {
     for (int tile = blockIdx.x; tile < row_tiles; tile += gridDim.x) {
       const int bp = tile / tiles, b = bp / a.p;
       if (!(run[b / 32] >> (b % 32) & 1)) continue;  // the frame is done: uniform over the block
+      const int* k = frame_shifts(a, ks, b, bp - b * a.p, a.w);
       const int i = (tile - bp * tiles) * kThreads + threadIdx.x;
-      if (i < n) check_row<MAXW, MIN_SUM>(a, ks + (bp - b * a.p) * a.w, bp, b, i, it == 0);
+      if (i < n) check_row<MAXW, MIN_SUM>(a, k, bp, b, i, it == 0);
     }
     grid.sync();
 
     for (int tile = blockIdx.x; tile < var_tiles; tile += gridDim.x) {
       const int b = tile / tiles;
       if (!(run[b / 32] >> (b % 32) & 1)) continue;
+      const int* k = frame_shifts(a, ks, b, 0, a.p * a.w);
       const int j = (tile - b * tiles) * kThreads + threadIdx.x;
-      if (j < n) variable<MAXW>(a, ks, b, j);
+      if (j < n) variable<MAXW>(a, k, b, j);
     }
     grid.sync();
 
     for (int tile = blockIdx.x; tile < row_tiles; tile += gridDim.x) {
       const int bp = tile / tiles, b = bp / a.p;
       if (!(run[b / 32] >> (b % 32) & 1)) continue;
+      const int* k = frame_shifts(a, ks, b, bp - b * a.p, a.w);
       const int i = (tile - bp * tiles) * kThreads + threadIdx.x;
-      const int wrong = i < n && syndrome_wrong<MAXW>(a, ks + (bp - b * a.p) * a.w, bp, b, i);
+      const int wrong = i < n && syndrome_wrong<MAXW>(a, k, bp, b, i);
       if (__syncthreads_or(wrong) && threadIdx.x == 0) atomicOr(bad + b, 1);
     }
     grid.sync();
@@ -353,8 +380,19 @@ using DecodeKernel = void (*)(Args);
 // Every instance, indexed [min_sum][bucket].
 const DecodeKernel kDecode[2 * kBuckets] = {MULTI_BUCKETS(false), MULTI_BUCKETS(true)};
 
-// Dynamic shared memory a block: the shifts and the running-frame bitmask.
-size_t smem_bytes(int p, int w, int batch) { return sizeof(int) * (static_cast<size_t>(p) * w + (batch + 31) / 32); }
+// Dynamic shared memory a block: the staged shifts and the running-frame
+// bitmask.
+size_t smem_bytes(int stage, int p, int w, int batch) {
+  return sizeof(int) * ((stage == 1 ? static_cast<size_t>(batch) : 1) * p * w + (batch + 31) / 32);
+}
+
+// The shapes every instance takes: w and a frame's P * w shifts, the batch,
+// the staging and, for stage 1, every shift staged.
+bool valid_shape(int stage, int p, int w, int batch) {
+  return p >= 1 && w >= 1 && w <= kMaxW && static_cast<long long>(p) * w <= kMaxShifts && batch >= 0 &&
+         batch <= kMaxBatch && stage >= 0 && stage <= 2 &&
+         (stage != 1 || smem_bytes(stage, p, w, batch) <= sizeof(int) * kMaxStaged);
+}
 
 DecodeKernel kernel_for(int w, int method) {
   int bucket = 5;
@@ -376,7 +414,10 @@ DecodeKernel kernel_for(int w, int method) {
 
 // Decode API (replaces _multi_circulant_bp).  method: 0 product-sum, 1
 // min-sum.  prior_c [B, N] f32; prior_i [B, P, N] f32 (0 = an inert row);
-// syndrome [B, P, N] 0/1; shifts [P, w] int32 in [0, N).  grid: blocks of
+// syndrome [B, P, N] 0/1; shifts int32 in [0, N), [P, w] shared by the
+// batch (stage 0) or [B, P, w], frame b's circulants in shifts[b] (stage 1:
+// all staged in a block's shared memory, at most kMaxStaged ints with the
+// bitmask; stage 2: staged a tile at a time).  grid: blocks of
 // the cooperative launch, at most the co-resident blocks
 // (multi_circulant_bp_occupancy; the Python helper multi_circulant_launch
 // picks it).  Scratch, no initialisation needed: c2v [B, P, w, ld] f32
@@ -386,22 +427,22 @@ DecodeKernel kernel_for(int w, int method) {
 // own when it is refused (cudaErrorCooperativeLaunchTooLarge for a grid
 // that cannot be resident, or a card without cooperative launch).
 extern "C" int multi_circulant_bp_decode(const float* prior_c, const float* prior_i, const uint8_t* syndrome,
-                                         const int* shifts, int p, int w, int n, int ld, int batch, int max_iter,
-                                         int method, int grid, float* c2v, float* tot, int* flags, uint8_t* e_c,
-                                         uint8_t* e_i, uint8_t* conv, int* iters, void* stream) {
+                                         const int* shifts, int stage, int p, int w, int n, int ld, int batch,
+                                         int max_iter, int method, int grid, float* c2v, float* tot, int* flags,
+                                         uint8_t* e_c, uint8_t* e_i, uint8_t* conv, int* iters, void* stream) {
   const long long tiles = (static_cast<long long>(n) + kThreads - 1) / kThreads;
-  if (prior_c == nullptr || prior_i == nullptr || syndrome == nullptr || shifts == nullptr || p < 1 || w < 1 ||
-      w > kMaxW || static_cast<long long>(p) * w > kMaxShifts || n < 1 || ld < n || ld % 32 != 0 || batch < 0 ||
-      batch > kMaxBatch || max_iter < 0 || (method != 0 && method != 1) || grid < 1 ||
+  if (prior_c == nullptr || prior_i == nullptr || syndrome == nullptr || shifts == nullptr ||
+      !valid_shape(stage, p, w, batch) || n < 1 || ld < n || ld % 32 != 0 || max_iter < 0 ||
+      (method != 0 && method != 1) || grid < 1 ||
       static_cast<long long>(batch) * p * tiles > INT_MAX) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (batch == 0) return 0;
-  Args a{prior_c, prior_i, syndrome, shifts, batch, p, w, n, ld, static_cast<int>(tiles), max_iter,
+  Args a{prior_c, prior_i, syndrome, shifts, stage, batch, p, w, n, ld, static_cast<int>(tiles), max_iter,
          c2v, tot, flags, e_c, e_i, conv, iters};
   void* params[] = {&a};
   const cudaError_t e = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel_for(w, method)), dim3(grid),
-                                                    dim3(kThreads), params, smem_bytes(p, w, batch),
+                                                    dim3(kThreads), params, smem_bytes(stage, p, w, batch),
                                                     static_cast<cudaStream_t>(stream));
   if (e != cudaSuccess) {
     cudaGetLastError();  // a refused launch leaves no error behind for the next caller
@@ -410,21 +451,20 @@ extern "C" int multi_circulant_bp_decode(const float* prior_c, const float* prio
   return static_cast<int>(cudaGetLastError());
 }
 
-// The current device's limits for the instance of (w, method) with P
-// blocks' shifts and a batch's bitmask in shared memory: out[0] blocks
-// resident on an SM (occupancy calculator), out[1] SMs, out[2] 1 if the
-// device can launch cooperatively, out[3] threads a block.  Returns a
-// cudaError_t.
-extern "C" int multi_circulant_bp_occupancy(int w, int method, int p, int batch, int* out) {
-  if (w < 1 || w > kMaxW || p < 1 || static_cast<long long>(p) * w > kMaxShifts || batch < 1 || batch > kMaxBatch ||
-      (method != 0 && method != 1)) {
+// The current device's limits for the instance of (w, method) with the
+// shifts of P blocks staged as `stage` and a batch's bitmask in shared
+// memory: out[0] blocks resident on an SM (occupancy calculator), out[1]
+// SMs, out[2] 1 if the device can launch cooperatively, out[3] threads a
+// block.  Returns a cudaError_t.
+extern "C" int multi_circulant_bp_occupancy(int w, int method, int stage, int p, int batch, int* out) {
+  if (!valid_shape(stage, p, w, batch) || batch < 1 || (method != 0 && method != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess) {
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[0], kernel_for(w, method), kThreads,
-                                                      smem_bytes(p, w, batch));
+                                                      smem_bytes(stage, p, w, batch));
   }
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&out[1], cudaDevAttrMultiProcessorCount, dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&out[2], cudaDevAttrCooperativeLaunch, dev);

@@ -1,4 +1,4 @@
-"""HQC key-recovery attack with an idealized decoding oracle.
+"""HQC key-recovery attack with an idealized or a measured decoding oracle.
 
 Counterpart of the JAX package's ``models/hqc/attack.py`` (the reference's
 flagship workload, simulate/hqc.py:987-1167 and its helpers).  The adaptive
@@ -22,8 +22,8 @@ Design deviations from the reference (behavior-preserving unless noted):
   (reference semantics, hqc.py:809-871); ``fast`` (default) answers via
   incremental Walsh-spectrum updates (oracle_fast.py) — one decapsulation
   per plaintext instead of one per probe — with optional continuous
-  cross-checking against the native path.  The JAX package's third backend,
-  the measured timing channel, is not ported yet.
+  cross-checking against the native path.  The third, ``timing``, answers
+  from cycle-timed decapsulations (oracle_timing.py).
 - The decode matrix ``[Hgen-rows | I]`` is never materialized densely: check
   rows are rows of a circulant, so the layout is built directly from (bit
   index, circulant support) pairs (hqc.py:680 builds a dense vstack).
@@ -217,10 +217,17 @@ class HqcOracle:
 
     ``epsilon = (p_keep_false, p_keep_true)``: probability the raw answer is
     NOT inverted, conditioned on the true answer (hqc.py:830-831, 859-864).
+
+    With ``timing_channel`` set (oracle_timing.TimingChannel), answers come
+    from **measured decapsulation timing** instead of ground-truth-plus-
+    simulated-noise: every amplification repeat performs a fresh differential
+    timing measurement, and EPSILON carries the channel's calibrated
+    per-measurement accuracy.  The ground-truth backend keeps running
+    underneath purely for live agreement statistics.
     """
 
     def __init__(self, params: HqcSimulationParams, tracking, priv, pt, rng, base_ct, backend="fast",
-                 crosscheck_every=0):
+                 crosscheck_every=0, timing_channel=None):
         self.params = params
         self.tracking = tracking
         self.priv = priv
@@ -230,6 +237,7 @@ class HqcOracle:
         self.ct = bytearray(base_ct)
         self.backend = backend
         self.crosscheck_every = crosscheck_every
+        self.timing = timing_channel
         self._raw_count = 0
         self.state = None
         if backend == "fast":
@@ -278,7 +286,17 @@ class HqcOracle:
 
     # -- noisy, certainty-amplified queries ---------------------------------
 
-    def _noisy(self, raw, debug):
+    def _noisy(self, raw, debug, vbit=None):
+        if self.timing is not None:
+            ct = self.ct
+            if vbit is not None:
+                ct = toggle_bits_in_v(ct, [vbit], self.params.N)
+            result = bool(self.timing.measure_success(ct))
+            if not debug:
+                self.tracking.num_oracle_calls += 1
+            if raw is not None:
+                self.timing.record_truth(result, raw)
+            return result, self.params.EPSILON[int(result)]
         keep_rate = self.params.EPSILON[int(raw)]
         invert = self.rng.rand() > keep_rate
         result = raw
@@ -289,16 +307,55 @@ class HqcOracle:
                 result = not result
         return result, keep_rate
 
-    def _amplify(self, raw, require, result_meta, debug):
+    def _amplify(self, raw, require, result_meta, debug, vbit=None):
         """Certainty amplification of one raw answer under epsilon noise:
         repeat until 1 - prod(1 - p_i) of the winning side crosses its
-        threshold (hqc.py:782-807)."""
+        threshold (hqc.py:782-807).  Under a timing channel every repeat is
+        a fresh measurement of the (ct, vbit) probe.
+
+        Physical channels (timing backend) get two corrections the
+        reference's iid heuristic lacks:
+
+        - **Bayesian posterior instead of the one-sided product.**  The
+          reference scores each side by 1 - prod(1 - p) over its own
+          readings only, ignoring the other side's evidence; with
+          disagreeing readings (True, False, True) it claims 0.99995 for
+          True where the likelihood-ratio posterior over both classes is
+          ~0.7.  Overconfident wrong checks poison the BP decode, so the
+          timing path computes P(truth | k_true, k_false) from the
+          calibrated per-class accuracies (noise IS conditionally iid
+          given the truth; the heuristic stays for the idealized backends
+          whose semantics it defines).
+        - **CERTAINTY_CAP.**  Per-ciphertext systematic error: a failing
+          probe whose garbage re-encryption draws >= 3 extra seed
+          expansions reads "success" on every repeat (the calibrated fail
+          ceiling, ~0.005).  Repeats of the SAME probe are correlated, so
+          no amount of re-measurement supports certainty beyond the
+          ceiling: the cap bounds both the amplification target and the
+          reported certainty per result class."""
+        cap = getattr(self.params, "CERTAINTY_CAP", None)
+        bayesian = self.timing is not None
+        acc_f, acc_t = self.params.EPSILON
+        counts = [0, 0]
         collected = ([], [])
         while True:
-            result, certainty = self._noisy(raw, debug)
+            result, certainty = self._noisy(raw, debug, vbit=vbit)
+            counts[result] += 1
             collected[result].append(certainty)
-            acc = 1.0 - prod(1.0 - p for p in collected[result])
-            if acc >= require[result]:
+            if bayesian:
+                k_t, k_f = counts[1], counts[0]
+                lik_true = acc_t**k_t * (1.0 - acc_t) ** k_f
+                lik_false = (1.0 - acc_f) ** k_t * acc_f**k_f
+                post_true = lik_true / (lik_true + lik_false)
+                result = post_true >= 0.5
+                acc = post_true if result else 1.0 - post_true
+            else:
+                acc = 1.0 - prod(1.0 - p for p in collected[result])
+            threshold = require[result]
+            if cap is not None:
+                acc = min(acc, cap[result])
+                threshold = min(threshold, cap[result])
+            if acc >= threshold:
                 if isinstance(result_meta, dict):
                     result_meta["certainty"] = acc
                 return result
@@ -312,7 +369,7 @@ class HqcOracle:
             block, bit = flipped_bit
             vbit = block * self.params.N2 + bit
         raw = self._raw(vbit)
-        return self._amplify(raw, (require_false, require_true), result_meta, debug)
+        return self._amplify(raw, (require_false, require_true), result_meta, debug, vbit=vbit)
 
     def query_candidates(self, block, bits, require_false, require_true, metas):
         """Batch-probe single-bit flips of ``bits`` within ``block``: raw
@@ -333,7 +390,8 @@ class HqcOracle:
         else:
             raws = [self._raw(v) for v in vbits]
         require = (require_false, require_true)
-        return [self._amplify(bool(raw), require, meta, debug=False) for raw, meta in zip(raws, metas)]
+        return [self._amplify(bool(raw), require, meta, debug=False, vbit=v)
+                for raw, meta, v in zip(raws, metas, vbits)]
 
     def assert_success(self, expect):
         """Validate the assumed oracle state at very high certainty;
@@ -819,7 +877,11 @@ def add_checks(params, tracking, decoder: CheckDecoder, shifts, check_value, bit
         if R % params.DECODE_EVERY == 0 and R != 0 and previous_decoding != R:
             previous_decoding = R
             unsatisfied = sum(c for (c, _p) in checks)
-            logger.info(f"{tracking.num_oracle_calls} oracle calls so far, {unsatisfied} unsatisfied checks out of {R}.")
+            timing = tracking.timing_channel
+            # in timing mode each oracle call is one channel decision costing 2 x timing_measure decapsulations
+            decaps_note = f" ({timing.num_decaps} timed decapsulations)" if timing is not None else ""
+            logger.info(f"{tracking.num_oracle_calls} oracle calls so far{decaps_note}, {unsatisfied} unsatisfied "
+                        f"checks out of {R}.")
             t0 = time.perf_counter()
             ok = decoder.decode(tracking, checks, y_sparse, executor=executor)
             tracking.decode_seconds += time.perf_counter() - t0
@@ -925,15 +987,31 @@ def simulate_hqc_idealized_oracle(
     checkpoint_path=None,
     checkpoint_every_decisions=0,
     resume=False,
+    timing_measure=64,
+    timing_profile_measurements=2**14,
+    timing_calibration_trials=100,
+    timing_chunk_cap=None,
+    timing_pt_target=3,
+    timing_recal_every=1200,
+    timing_recal_trials=20,
     device="cuda",
 ):
-    """Full idealized-oracle key-recovery attack.  Returns (success, tracking).
+    """Full key-recovery attack.  Returns (success, tracking).
 
     ``oracle_backend``: "fast" answers probes via incremental Walsh-spectrum
     updates (one native decapsulation per plaintext), cross-checked against
     the native path every ``crosscheck_every`` raw queries; "native"
-    decapsulates on every query like the reference.  "timing" (the JAX
-    package's measured timing channel) is not ported yet and raises.
+    decapsulates on every query like the reference; "timing" answers every
+    query from **measured decapsulation timing** of the native implementation
+    (oracle_timing.TimingChannel), the physical side channel the reference
+    only characterizes (hqc_eval_oracle.py) but never attacks with.  EPSILON
+    is then set from in-run calibration at ``timing_measure`` measurements
+    per decision, and the fast ground-truth oracle runs underneath solely
+    for live accuracy accounting (``tracking.timing_channel``).  In timing
+    mode each oracle call costs ``2 * timing_measure`` real decapsulations
+    (differential measurement); ``tracking.timing_channel.num_decaps``
+    carries the physical-measurement count, while ``num_oracle_calls``
+    (and the ``max_oracle_calls`` budget) keeps counting *decisions*.
     ``max_oracle_calls`` bounds the run (None = run to recovery).
     ``decode_executor`` lets an orchestrator batch decode calls across
     independent attack instances.  ``keypair`` supplies a pre-generated
@@ -945,22 +1023,30 @@ def simulate_hqc_idealized_oracle(
     ``device``: where the decodes run; the default needs a CUDA device and
     raises without one.
 
+    ``timing_pt_target``: extra seed expansions required of the attack
+    plaintext in timing mode (default 3, like the reference, hqc.py:96-124:
+    each of the three sampled vectors overflows its buffer at most once, so
+    extras are Binomial(3, ~0.18) and P(garbage >= 3) ~ 0.0055 is the
+    channel's intrinsic fail-class floor).  ``timing_recal_every`` /
+    ``timing_recal_trials``: mid-attack drift recalibration cadence
+    (decisions between recalibrations / known-class probes per class; 0
+    disables; TimingChannel.recalibrate).  The other ``timing_*`` arguments
+    go to oracle_timing.calibrate_timing_channel.
+
     ``checkpoint_path``: pickle the full attack state there at every clean
     point (top of each inner block-search iteration, where the ciphertext
     equals the plaintext-round base); ``checkpoint_every_decisions`` > 0
     rate-limits writes to once per that many oracle decisions.  With
     ``resume=True`` an existing checkpoint is loaded and the attack
     continues mid-round from it: the rng stream, tracking state machine,
-    accumulated checks and decoder rows are restored, and the (pickled)
-    keypair overrides ``keyfile``/``keypair``.  A checkpoint written under
-    other attack parameters (``error_rate`` and ``crosscheck_every``
-    included) is refused."""
-    if oracle_backend == "timing":
-        raise NotImplementedError(
-            'oracle_backend="timing" needs the timing oracle (models/hqc/oracle_timing.py and eval_oracle.py), '
-            "which ROADMAP.md §1 queues for a later part of Slice 4"
-        )
-    if oracle_backend not in ("fast", "native"):
+    accumulated checks, decoder rows and timing-channel tallies are
+    restored, the (pickled) keypair overrides ``keyfile``/``keypair``, and
+    in timing mode the start-of-attack profiling is skipped in favor of the
+    stored channel parameters plus one immediate recalibration (the channel
+    has drifted across the gap).  A checkpoint written under other attack
+    parameters (``error_rate`` and ``crosscheck_every`` included) is
+    refused."""
+    if oracle_backend not in ("fast", "native", "timing"):
         raise ValueError(f"unknown oracle_backend: {oracle_backend}")
     if decode_backend not in DECODE_BACKENDS:
         raise ValueError(f"unknown decode_backend: {decode_backend}")
@@ -977,6 +1063,7 @@ def simulate_hqc_idealized_oracle(
         "param_set": str(param_set), "decode_every": decode_every, "weight": weight,
         "oracle_backend": oracle_backend, "decode_backend": decode_backend,
         "error_rate": float(error_rate), "crosscheck_every": crosscheck_every,
+        "timing_measure": timing_measure, "timing_pt_target": timing_pt_target,
     }
     ckpt = None
     if resume:
@@ -993,6 +1080,47 @@ def simulate_hqc_idealized_oracle(
         rng.set_state(ckpt["rng_state"])
     else:
         pub, priv = keypair if keypair is not None else read_or_generate_keypair(params.HQC, keyfile)
+
+    timing_channel = None
+    timing_params = None
+    if oracle_backend == "timing" and ckpt is not None:
+        timing_params = ckpt["timing_params"]
+        params.EPSILON = tuple(ckpt["epsilon"])
+        if ckpt["certainty_cap"] is not None:
+            params.CERTAINTY_CAP = tuple(ckpt["certainty_cap"])
+        tracking.timing_calibration = ckpt["tracking"]["timing_calibration"]
+    elif oracle_backend == "timing":
+        from .oracle_timing import calibrate_timing_channel
+
+        # calibrate_timing_channel re-profiles and ultimately raises if either
+        # class accuracy stays below its floor: a broken or inverted channel
+        # must not feed the attack.
+        timing_params, acc_fail, acc_success, _ = calibrate_timing_channel(
+            params.HQC, rng, pub, priv, measure=timing_measure,
+            profile_measurements=timing_profile_measurements,
+            calibration_trials=timing_calibration_trials,
+            chunk_cap=timing_chunk_cap,
+            pt_target=timing_pt_target,
+        )
+        # Cap the upper end only: certainty 1.0 would mark wrong checks as
+        # impossible (add_check escalates certainty-1.0 errors).
+        params.EPSILON = (min(acc_fail, 0.995), min(acc_success, 0.995))
+        # Physical certainty ceilings (see HqcOracle._amplify): a "success"
+        # reading can never be more certain than P(garbage re-encryption
+        # draws < 3 extra expansions) no matter how often it is repeated;
+        # a "failure" reading's systematic risk is drift-only (smaller).
+        fail_ceiling = timing_params["fail_ceiling"]
+        params.CERTAINTY_CAP = (
+            0.9995,  # result=False readings
+            max(0.9, min(0.998, fail_ceiling)),  # result=True readings
+        )
+        logger.info(f"Timing-oracle calibrated EPSILON: {params.EPSILON}, certainty cap {params.CERTAINTY_CAP}")
+        # params.EPSILON is live-updated by mid-attack recalibration, so the
+        # start-of-attack calibration is kept apart
+        tracking.timing_calibration = {
+            "acc_fail": acc_fail, "acc_success": acc_success,
+            "initial_epsilon": tuple(params.EPSILON),
+        }
 
     _x, y_sparse = params.HQC.secrets_from_key(priv)
     y_sparse = sorted(y_sparse)
@@ -1024,12 +1152,17 @@ def simulate_hqc_idealized_oracle(
                 "num_oracle_calls": tracking.num_oracle_calls,
                 "decoder_stats": list(tracking.decoder_stats),
                 "block_status": tracking.block_status,
+                "timing_calibration": tracking.timing_calibration,
             },
             "checks": list(checks),
             "decoder": decoder.state_dict(),
             "pt": bytes(pt),
             "shifts": [int(s) for s in shifts],
             "ct": bytes(round_base_ct),
+            "epsilon": tuple(params.EPSILON),
+            "certainty_cap": getattr(params, "CERTAINTY_CAP", None),
+            "timing_params": timing_params,
+            "channel": timing_channel.state_dict() if timing_channel is not None else None,
         })
         last_checkpoint_decisions[0] = tracking.num_oracle_calls
 
@@ -1041,7 +1174,8 @@ def simulate_hqc_idealized_oracle(
             r1_sparse = sorted(int(i) for i in shifts)
             ct = bytearray(ckpt["ct"])
         else:
-            pt = search_distinguishable_plaintext(params.HQC, rng, target_additional_seedexpansions=3)
+            pt = search_distinguishable_plaintext(
+                params.HQC, rng, target_additional_seedexpansions=timing_pt_target if oracle_backend == "timing" else 3)
 
             logger.info(f"Create random (L/M)DPC parity check of size {params.N}")
             first_row = random_circulant_first_row(params.N, weight, rng)
@@ -1052,9 +1186,48 @@ def simulate_hqc_idealized_oracle(
             ct, _ss = params.HQC.encaps_with_plaintext_and_r1(pub, pt, r1_sparse)
 
         y_times_r1 = sparse_times_sparse(y_sparse, r1_sparse, params.N)
-        oracle = HqcOracle(params, tracking, priv, pt, rng, ct, backend=oracle_backend,
-                           crosscheck_every=crosscheck_every)
-        if not isnan(error_rate) and error_rate > 0.0:
+        if oracle_backend == "timing":
+            if timing_channel is None:
+                from .oracle_timing import TimingChannel
+
+                def _adopt_epsilon(eps):
+                    # recalibrated per-class accuracy flows straight into the
+                    # Bayesian amplification (which reads params.EPSILON on
+                    # every repeat)
+                    params.EPSILON = (min(eps[0], 0.995), min(eps[1], 0.995))
+
+                ct_trials = timing_params["calibration_trials"]
+                timing_channel = TimingChannel(
+                    params.HQC, priv, ct, timing_params["gap"],
+                    margin=timing_params["margin"],
+                    measure=timing_measure, chunk_cap=timing_chunk_cap,
+                    rng=rng, recal_every=timing_recal_every,
+                    recal_trials=timing_recal_trials,
+                    epsilon=params.EPSILON,
+                    calibration_counts=(
+                        timing_params["acc_fail"] * ct_trials, ct_trials,
+                        timing_params["acc_success"] * ct_trials, ct_trials,
+                    ),
+                    on_update=_adopt_epsilon,
+                )
+                if resuming_round and ckpt["channel"] is not None:
+                    timing_channel.load_state_dict(ckpt["channel"])
+                    timing_channel.rebase(ct)
+                # live counters (decaps, measurements, per-class empirical
+                # accuracy) stay reachable from the returned tracking
+                tracking.timing_channel = timing_channel
+                if resuming_round and ckpt["channel"] is not None:
+                    # the channel drifted across the checkpoint gap: re-center
+                    # the decision boundary and refresh the rolling EPSILON
+                    # before trusting any decision
+                    logger.info("Post-resume channel recalibration")
+                    timing_channel.recalibrate(trials=max(timing_recal_trials, 30))
+            else:
+                timing_channel.rebase(ct)
+        oracle = HqcOracle(params, tracking, priv, pt, rng, ct,
+                           backend="fast" if oracle_backend == "timing" else oracle_backend,
+                           crosscheck_every=crosscheck_every, timing_channel=timing_channel)
+        if oracle_backend == "timing" or (not isnan(error_rate) and error_rate > 0.0):
             oracle.assert_raises = False
 
         if resuming_round:

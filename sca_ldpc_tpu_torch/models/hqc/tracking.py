@@ -64,6 +64,8 @@ class HqcSimulationTracking:
         self.params = params
         self.decoder_stats = []
         self.decode_seconds = 0.0  # wall time inside the decodes (host clock, results on the host)
+        self.timing_channel = None  # the measured oracle's TimingChannel (oracle_backend="timing")
+        self.timing_calibration = None  # its start-of-attack calibration
 
     def reset_block_status(self):
         self.current_block_nr = None

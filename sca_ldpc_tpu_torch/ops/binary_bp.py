@@ -120,6 +120,79 @@ def _bp_decode_syndrome(chk_var, chk_mask, var_flat, var_mask, prior_llr, syndro
     return e_out, conv, torch.tensor(it, dtype=torch.int32)
 
 
+def _bp_decode_instances(chk_var, chk_mask, var_flat, var_mask, prior_llr, syndrome, max_iter, method):
+    """:func:`_bp_decode_syndrome` over an instance axis: instance i decodes
+    its one frame ``syndrome[i]`` on its own layout, all in one loop (the
+    JAX package's ``jax.vmap`` of ``_bp_decode_syndrome`` in the batched HQC
+    attack, ``models/hqc/batched.py:_batched_decode_received``).
+
+    chk_var [I, R, DC] (pad == N), chk_mask [I, R, DC] bool, var_flat
+    [I, N, DV] into each instance's flattened [R*DC + 1] c2v, var_mask
+    [I, N, DV] bool, prior_llr [I, N] float32, syndrome [I, R] 0/1, every
+    instance padded to the round's shared (R, N, DC, DV).  Each instance's
+    first converged estimate is latched, so its decisions are those of its
+    own decode.  Returns (e [I, N] int32, conv [I] bool, it 0-d int32: the
+    iterations the round ran)."""
+    i_n, r, dc = chk_var.shape
+    n = var_flat.shape[1]
+    if method not in ("product_sum", "min_sum"):
+        raise ValueError(f"unknown bp method: {method}")
+    dev = syndrome.device
+    chk_idx = chk_var.reshape(i_n, -1).long()
+    var_idx = var_flat.reshape(i_n, -1).long()
+
+    def take(x, idx):  # x [I, M] with the sentinel slot appended, gathered per instance
+        return torch.gather(_pad1(x), 1, idx)
+
+    prior = torch.as_tensor(prior_llr, dtype=torch.float32, device=dev)
+    syndrome = syndrome.to(torch.int32)
+    sign_flip = 1.0 - 2.0 * syndrome.to(torch.float32)  # [I, R]
+    v2c = take(prior, chk_idx).reshape(i_n, r, dc)
+
+    e_out = (prior < 0).to(torch.int32)
+    conv = torch.zeros((i_n,), dtype=torch.bool, device=dev)
+    it = 0
+    while it < max_iter and not bool(torch.all(conv)):
+        c2v = _check_update(v2c, sign_flip, chk_mask, method)
+        c2v_var = take(c2v.reshape(i_n, -1), var_idx).reshape(i_n, n, -1)
+        c2v_var = torch.where(var_mask, c2v_var, 0.0)
+        total = prior + torch.sum(c2v_var, dim=-1)
+        v2c = torch.clamp(take(total, chk_idx).reshape(i_n, r, dc) - c2v, -_BIG, _BIG)
+
+        e_hat = (total < 0).to(torch.int32)
+        bits = take(e_hat, chk_idx).reshape(i_n, r, dc)
+        ok = torch.all(torch.sum(torch.where(chk_mask, bits, 0), dim=-1) % 2 == syndrome, dim=-1)
+        e_out = torch.where(conv[:, None], e_out, e_hat)  # latch each instance's first converged estimate
+        conv = conv | ok
+        it += 1
+    return e_out, conv, torch.tensor(it, dtype=torch.int32)
+
+
+def decode_received_instances(layouts, channels, msgs, max_iter=100, method="product_sum", device="cuda"):
+    """Received-vector decode of one word an instance, each on its own
+    :class:`CodeLayout` (all of one shape (R, N, DC, DV)) with its own
+    per-position error probabilities: the corrected words ``(z + e_hat) % 2``
+    as a numpy [I, N] array, read back in one copy.  The batched HQC attack's
+    ``"general"`` and ``"padded"`` rounds (the JAX package's
+    ``_batched_decode_received``); plain PyTorch on ``device``."""
+    device = torch.device(device)
+
+    def stack(arrays, dtype=None):
+        return torch.as_tensor(np.stack(arrays), dtype=dtype, device=device)
+
+    chk_var = stack([lay.chk_var for lay in layouts])
+    chk_mask = stack([lay.chk_mask for lay in layouts])
+    var_flat = stack([lay.var_flat for lay in layouts])
+    var_mask = stack([lay.var_mask for lay in layouts])
+    prior = stack([np.log((1 - np.asarray(c)) / np.asarray(c)) for c in channels], torch.float32)
+    z = stack([np.asarray(m) for m in msgs], torch.int32)
+    i_n, r, dc = chk_var.shape
+    bits = torch.gather(_pad1(z), 1, chk_var.reshape(i_n, -1).long()).reshape(i_n, r, dc)
+    syn = torch.sum(torch.where(chk_mask, bits, 0), dim=-1) % 2
+    e, _conv, _it = _bp_decode_instances(chk_var, chk_mask, var_flat, var_mask, prior, syn, max_iter, method)
+    return ((z + e) % 2).cpu().numpy()
+
+
 def _host(x):
     return x.cpu().numpy() if isinstance(x, torch.Tensor) else x
 

@@ -184,10 +184,13 @@ def _multi_circulant_bp_frames(prior_c, prior_i, syndrome, shifts, max_iter, met
 def _multi_circulant_bp(prior_c, prior_i, syndrome, shifts, max_iter, method):
     """The JAX package's ``_multi_circulant_bp``: BP over
     ``H = [[C_1]; ...; [C_P]] | I_{P*N}`` (the HQC attack's masked decode; see
-    :func:`_multi_circulant_bp_frames` for the arguments).  On CUDA tensors it
-    runs the CUDA kernel K8 (``multi_circulant_bp_cuda``), on CPU tensors the
-    plain version.  Returns (e_c int32, e_i int32, conv [B] bool, it), ``it``
-    (0-d int32) the largest per-frame iteration count."""
+    :func:`_multi_circulant_bp_frames` for the arguments).  ``shifts`` may also
+    be per frame, [B, P, W]: frame b is decoded with the circulants
+    ``shifts[b]`` (a port-only extension: the batched attack's round, an
+    instance a frame).  On CUDA tensors it runs the CUDA kernel K8
+    (``multi_circulant_bp_cuda``), on CPU tensors the plain version.  Returns
+    (e_c int32, e_i int32, conv [B] bool, it), ``it`` (0-d int32) the largest
+    per-frame iteration count."""
     from .kernels.circulant_cuda import multi_circulant_bp_cuda
 
     e_c, e_i, conv, iters = multi_circulant_bp_cuda(prior_c, prior_i, syndrome, shifts, max_iter, method)

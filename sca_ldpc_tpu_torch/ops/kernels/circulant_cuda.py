@@ -570,12 +570,26 @@ circulant_fer_lean_cuda.launches = 0
 
 
 # K8 is one cooperative launch a decode of MULTI_THREADS-thread blocks, each
-# a check (or variable) a thread; a block stages the shifts [P, w] (at most
-# MULTI_MAX_SHIFTS) and a bitmask of the running frames (at most
-# MULTI_MAX_BATCH) in shared memory.
+# a check (or variable) a thread; a block stages the shifts (a frame's P * w
+# at most MULTI_MAX_SHIFTS) and a bitmask of the running frames (at most
+# MULTI_MAX_BATCH) in shared memory: shifts [P, w] shared by the batch once
+# (stage 0), per-frame shifts [B, P, w] all at once where they fit in
+# MULTI_MAX_STAGED ints with the bitmask (stage 1), or a tile's with the tile
+# (stage 2).
 MULTI_THREADS = 256
 MULTI_MAX_SHIFTS = 10240
 MULTI_MAX_BATCH = 65535
+MULTI_MAX_STAGED = 12288  # ints: the 48 KB of shared memory a block takes without an opt-in
+
+
+def multi_circulant_stage(batch, p, w, per_frame):
+    """How K8 stages the shifts of ``batch`` frames of ``p`` blocks of
+    weight ``w``: 0 for shifts [P, w] shared by the batch, else 1 (every
+    frame's [P, w] staged once a block) where those and the bitmask fit in
+    ``MULTI_MAX_STAGED`` ints, 2 (a tile's staged with it) where they do not."""
+    if not per_frame:
+        return 0
+    return 1 if int(batch) * int(p) * int(w) + -(-int(batch) // 32) <= MULTI_MAX_STAGED else 2
 
 
 class MultiLaunch(NamedTuple):
@@ -611,33 +625,34 @@ def _multi_lib():
 
     lib = load("circulant_multi")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.multi_circulant_bp_decode.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, p, p, p, p, p, p, p, p]
+    lib.multi_circulant_bp_decode.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, i, p, p, p, p, p, p, p, p]
     lib.multi_circulant_bp_decode.restype = i
-    lib.multi_circulant_bp_occupancy.argtypes = [i, i, i, i, p]
+    lib.multi_circulant_bp_occupancy.argtypes = [i, i, i, i, i, p]
     lib.multi_circulant_bp_occupancy.restype = i
     return lib
 
 
 @functools.cache
-def _multi_occupancy(device_index, w, method, p, batch):
+def _multi_occupancy(device_index, w, method, p, batch, stage):
     out = (ctypes.c_int * 4)()
     with torch.cuda.device(device_index):
-        rc = _multi_lib().multi_circulant_bp_occupancy(int(w), _METHODS[method], int(p), int(batch), out)
+        rc = _multi_lib().multi_circulant_bp_occupancy(int(w), _METHODS[method], int(stage), int(p), int(batch), out)
     if rc != 0:
         raise RuntimeError(f"multi_circulant_bp_occupancy failed: CUDA error {rc}")
     return {"blocks_per_sm": out[0], "sms": out[1], "cooperative": bool(out[2]), "threads": out[3]}
 
 
-def multi_circulant_occupancy(w, method="product_sum", p=1, device="cuda", batch=1):
+def multi_circulant_occupancy(w, method="product_sum", p=1, device="cuda", batch=1, stage=0):
     """The card's limits for K8's instance of (w, method) with ``p`` blocks'
-    shifts and ``batch`` frames' bitmask in shared memory: {"blocks_per_sm"
-    (occupancy calculator), "sms", "cooperative" (the card can launch
-    cooperatively), "threads" (a block)}.  Needs a CUDA device."""
+    shifts staged as ``stage`` (:func:`multi_circulant_stage`) and ``batch``
+    frames' bitmask in shared memory: {"blocks_per_sm" (occupancy
+    calculator), "sms", "cooperative" (the card can launch cooperatively),
+    "threads" (a block)}.  Needs a CUDA device."""
     if method not in _METHODS:
         raise ValueError(f"unknown bp method: {method}")
     device = torch.device(device)
     return dict(_multi_occupancy(device.index if device.index is not None else torch.cuda.current_device(),
-                                 int(w), method, int(p), int(batch)))
+                                 int(w), method, int(p), int(batch), int(stage)))
 
 
 def multi_circulant_ptxas():
@@ -652,7 +667,7 @@ def multi_circulant_ptxas():
 
 def _check_multi(prior_c, prior_i, syndrome, shifts, max_iter, method):
     """Checks the masked decode's inputs; returns (device, B, P, N, shifts as
-    int32 [P, W] in [0, N) on the device)."""
+    int32 [P, W] or [B, P, W] in [0, N) on the device)."""
     device = prior_c.device
     if prior_c.ndim != 2 or syndrome.ndim != 3:
         raise ValueError(f"prior_c must be [B, N] and syndrome [B, P, N], got shapes {tuple(prior_c.shape)} "
@@ -662,8 +677,9 @@ def _check_multi(prior_c, prior_i, syndrome, shifts, max_iter, method):
     _check(prior_i, "prior_i", (b, p, n), (torch.float32,), device)
     _check(syndrome, "syndrome", (b, p, n), _INT_DTYPES, device)
     k = torch.as_tensor(shifts, device=device)
-    if k.ndim != 2 or k.shape[0] != p or not 1 <= k.shape[1] <= _MAX_W:
-        raise ValueError(f"shifts must be [P={p}, W] with W in [1, {_MAX_W}], got shape {tuple(k.shape)}")
+    if k.ndim not in (2, 3) or tuple(k.shape[:-1]) not in ((p,), (b, p)) or not 1 <= k.shape[-1] <= _MAX_W:
+        raise ValueError(f"shifts must be [P={p}, W] or [B={b}, P={p}, W] with W in [1, {_MAX_W}], got shape "
+                         f"{tuple(k.shape)}")
     if k.dtype not in _INT_DTYPES[1:]:
         raise TypeError(f"shifts has dtype {k.dtype}, expected an integer dtype")
     if method not in _METHODS:
@@ -674,8 +690,15 @@ def _check_multi(prior_c, prior_i, syndrome, shifts, max_iter, method):
 
 
 def multi_circulant_bp_plain(prior_c, prior_i, syndrome, shifts, max_iter, method="product_sum"):
-    """Plain PyTorch version of :func:`multi_circulant_bp_cuda`, on any device."""
-    return _multi_circulant_bp_frames(prior_c, prior_i, syndrome, shifts, int(max_iter), method)
+    """Plain PyTorch version of :func:`multi_circulant_bp_cuda`, on any device.
+    Per-frame shifts [B, P, W] decode frame by frame, each with its own."""
+    shifts = torch.as_tensor(shifts)
+    if shifts.ndim == 2 or not len(shifts):  # shared shifts, or no frame (any [P, W] decodes none)
+        return _multi_circulant_bp_frames(prior_c, prior_i, syndrome, shifts if shifts.ndim == 2 else
+                                          shifts.new_zeros(shifts.shape[1:]), int(max_iter), method)
+    outs = [_multi_circulant_bp_frames(prior_c[f:f + 1], prior_i[f:f + 1], syndrome[f:f + 1], shifts[f],
+                                       int(max_iter), method) for f in range(syndrome.shape[0])]
+    return tuple(torch.cat(parts) for parts in zip(*outs))
 
 
 def multi_circulant_bp_cuda(prior_c, prior_i, syndrome, shifts, max_iter, method="product_sum"):
@@ -684,8 +707,10 @@ def multi_circulant_bp_cuda(prior_c, prior_i, syndrome, shifts, max_iter, method
 
     prior_c [B, N] float32 LLRs of the shared variables; prior_i [B, P, N]
     float32 identity priors (exactly 0 on an unmeasured row); syndrome
-    [B, P, N] 0/1 (integer or bool); shifts [P, W] integers (a tensor or
-    array; one circulant's support offsets a block).  Returns (e_c [B, N] int32, e_i [B, P, N]
+    [B, P, N] 0/1 (integer or bool); shifts integers (a tensor or array;
+    one circulant's support offsets a block), [P, W] shared by the batch or
+    [B, P, W], frame b decoded with the circulants ``shifts[b]`` (the
+    batched attack's round, an instance a frame).  Returns (e_c [B, N] int32, e_i [B, P, N]
     int32, conv [B] bool, iters [B] int32), ``iters`` being the iteration at
     which each frame first converged, or the number run if it never did.
 
@@ -696,10 +721,11 @@ def multi_circulant_bp_cuda(prior_c, prior_i, syndrome, shifts, max_iter, method
     device, b, p, n, k = _check_multi(prior_c, prior_i, syndrome, shifts, max_iter, method)
     if device.type == "cpu":
         return multi_circulant_bp_plain(prior_c, prior_i, syndrome, k, max_iter, method)
-    w = k.shape[1]
+    w = k.shape[-1]
     if p * w > MULTI_MAX_SHIFTS or b > MULTI_MAX_BATCH:
-        raise ValueError(f"P * W = {p * w} shifts or B = {b} frames above the kernel's {MULTI_MAX_SHIFTS} and "
-                         f"{MULTI_MAX_BATCH}")
+        raise ValueError(f"P * W = {p * w} shifts a frame or B = {b} frames above the kernel's {MULTI_MAX_SHIFTS} "
+                         f"and {MULTI_MAX_BATCH}")
+    stage = multi_circulant_stage(b, p, w, k.ndim == 3)
 
     stream = _cuda_stream(device)
     ld = _round_up(n, 32)
@@ -713,10 +739,10 @@ def multi_circulant_bp_cuda(prior_c, prior_i, syndrome, shifts, max_iter, method
         conv = torch.empty((b,), dtype=torch.uint8, device=device)
         iters = torch.empty((b,), dtype=torch.int32, device=device)
         if b:
-            occ = multi_circulant_occupancy(w, method, p, device, b)
+            occ = multi_circulant_occupancy(w, method, p, device, b, stage)
             grid = multi_circulant_launch(b, p, n, occ["blocks_per_sm"], occ["sms"]).grid
             rc = _multi_lib().multi_circulant_bp_decode(
-                prior_c.data_ptr(), prior_i.data_ptr(), syn.data_ptr(), k.data_ptr(), p, w, n, ld, b,
+                prior_c.data_ptr(), prior_i.data_ptr(), syn.data_ptr(), k.data_ptr(), stage, p, w, n, ld, b,
                 int(max_iter), _METHODS[method], int(grid), c2v.data_ptr(), tot.data_ptr(),
                 flags.data_ptr(), e_c.data_ptr(), e_i.data_ptr(), conv.data_ptr(), iters.data_ptr(), stream,
             )

@@ -1,10 +1,12 @@
-"""Monte-Carlo q-ary frame-error-rate simulation, batched on the device.
+"""Monte-Carlo frame-error-rate simulation, batched on the device.
 
-Reference semantics: decode.py:180-286 — the all-zero codeword with noisy
-symbol distributions, one Rust decode per thread-pool task.  Here a batch of
-frames is sampled, its channel tensor built on the device from the error mask,
-and the whole batch decoded by one :class:`~sca_ldpc_tpu_torch.ops.qary.QaryDecoder`
-call; only per-batch counts cross to the host.
+Reference semantics: decode.py:130-177 (binary, one frame per Python-loop
+iteration through ldpc.bp_decoder) and decode.py:180-286 (q-ary, the
+all-zero codeword with noisy symbol distributions, one Rust decode per
+thread-pool task).  Here a batch of frames is sampled on the device, all its
+syndromes computed at once, and the whole batch decoded by one decoder call;
+only per-batch counts cross to the host.  The thread pool of the reference
+is replaced by the batch axis.
 """
 
 import logging
@@ -12,10 +14,74 @@ import logging
 import numpy as np
 import torch
 
+from ..channels.errors import ErrorsProvider
+from ..codes.layout import CodeLayout
+from ..ops.binary_bp import BinaryBPDecoder, _pad1
 from ..ops.qary import QaryDecoder
 from ..utils import make_random_state, rng_to_torch_generator
 
 logger = logging.getLogger(__name__)
+
+
+def _syndromes(layout: CodeLayout, errors, chk_var, chk_mask):
+    """[B, n] int errors -> [B, R] syndromes through the layout's gathers
+    (``chk_var``/``chk_mask`` on the errors' device)."""
+    b = errors.shape[0]
+    bits = _pad1(errors).index_select(-1, chk_var.reshape(-1)).reshape(b, layout.r, layout.dc)
+    return torch.sum(torch.where(chk_mask, bits, 0), dim=-1) % 2
+
+
+def simulate_frame_error_rate(
+    H,
+    errors_provider: ErrorsProvider,
+    runs: int,
+    rng,
+    max_iter=None,
+    method="product_sum",
+    batch_size=None,
+    device="cuda",
+):
+    """Count successful decodings over ``runs`` random frames.
+
+    API-compatible with decode.py:130-177; ``max_iter`` defaults to n like
+    the reference's ``bp_decoder(..., max_iter=n)``, the batch to
+    ``min(runs, 1024)``.  Errors are sampled on ``device`` from a
+    ``torch.Generator`` made from ``rng`` (one host draw a batch, as the JAX
+    package's key): statistically the reference's host loop, not its
+    per-position RNG stream, so conformance is at the FER level.  The decode
+    is :class:`BinaryBPDecoder`; the default device needs a CUDA device and
+    raises without one.
+    """
+    H = np.asarray(H)
+    n = H.shape[1]
+    rng = make_random_state(rng)
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device} requested but torch.cuda.is_available() is False; "
+                           'pass device="cpu" to run on the CPU')
+    max_iter = int(max_iter if max_iter is not None else n)
+
+    channel_probs = errors_provider.get_binary_channel_probs(n)
+    if channel_probs == [None]:
+        channel_probs = np.full(n, errors_provider.get_error_rate(), dtype=np.float32)
+    else:
+        channel_probs = np.asarray(channel_probs, dtype=np.float32)
+
+    decoder = BinaryBPDecoder(H, max_iter=max_iter, method=method, channel_probs=channel_probs, device=device)
+    layout = decoder.layout
+    chk_var = torch.as_tensor(layout.chk_var, device=device).long()
+    chk_mask = torch.as_tensor(layout.chk_mask, device=device)
+
+    batch = int(batch_size or min(runs, 1024))
+    successes = 0
+    done = 0
+    while done < runs:
+        cur = min(batch, runs - done)
+        errors = errors_provider.sample_batch(rng_to_torch_generator(rng, device), cur, n)
+        decoded = decoder.decode_syndrome(_syndromes(layout, errors, chk_var, chk_mask))
+        successes += int(torch.all(decoded == errors, dim=-1).sum())
+        done += cur
+    return successes
 
 
 def simulate_frame_error_rate_qary(

@@ -185,11 +185,22 @@ def test_entry_points_default_to_the_card(name):
     assert inspect.signature(getattr(attack, name)).parameters["device"].default == "cuda"
 
 
-def test_attack_raises_without_a_card_and_for_the_timing_oracle():
+def test_attack_raises_without_a_card_and_for_the_timing_oracle(monkeypatch):
+    """No card: the default device raises.  The timing oracle is ported: the
+    attack calibrates the channel first (here a stand-in that raises, so the
+    test measures nothing); an unknown oracle raises."""
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             simulate_hqc_idealized_oracle(make_random_state(0), 50, 20, KEY)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    from sca_ldpc_tpu_torch.models.hqc import oracle_timing
+
+    def calibrate(*args, **kwargs):
+        raise LookupError("calibration reached")
+
+    monkeypatch.setattr(oracle_timing, "calibrate_timing_channel", calibrate)
+    with pytest.raises(LookupError, match="calibration reached"):
         simulate_hqc_idealized_oracle(make_random_state(0), 50, 20, KEY, oracle_backend="timing", device="cpu")
+    with pytest.raises(ValueError, match="oracle_backend"):
+        simulate_hqc_idealized_oracle(make_random_state(0), 50, 20, KEY, oracle_backend="bogus", device="cpu")
     with pytest.raises(ValueError, match="decode_backend"):
         simulate_hqc_idealized_oracle(make_random_state(0), 50, 20, KEY, decode_backend="bogus", device="cpu")
