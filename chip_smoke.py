@@ -22,7 +22,11 @@ multi-instance attack, whose decode rounds are one K8 launch on per-instance
 shifts [I, P, W]; path 7 the attack against the measured timing oracle
 (cycle-timed decapsulations on the host, "circulant" decodes on the card);
 path 8 binary FER simulation on a (3, 6)-regular LDPC code of 300 columns
-(the reference's regular_ldpc_code command).
+(the reference's regular_ldpc_code command).  Path 9 is the command line
+(python -m sca_ldpc_tpu_torch.cli.main), which reaches K8, K7 and K6; path 10
+the scripts (python -m sca_ldpc_tpu_torch.scripts.<name>): the attack's
+phase profile (K8), the FER step's profiler trace (K1) and the batched sweep
+(K8).
 
 Phases (each prints one line; any failure exits non-zero):
   1. build the CUDA kernels from csrc/ (one nvcc per source, in parallel)
@@ -171,21 +175,46 @@ Phases (each prints one line; any failure exits non-zero):
  21. path 8: simulate_frame_error_rate on
      make_regular_ldpc_parity_check_matrix(300, 150, 3, 6, seed 0) on the
      card at rate 0.02 (frames/s, FER) and 0.07 (FER near 0.25), each
-     within 3 binomial sigma of the port's CPU run of the same call.
+     within 3 binomial sigma of the port's CPU run of the same call;
+ 22. path 9, the CLI in this process (cli.main.main() with sys.argv set; the
+     launch counts set to 0 before each command and read after):
+     hqc_simulate --decode-backend circulant on phase 17's cell (seed 0, the
+     fixture key, --max-oracle-calls 60000, --csv-output): the key recovered,
+     "Successfully decoded" logged, success sequence and oracle calls equal to
+     phase 17's card run, the CSV's bytes equal to its stats table, one K8
+     launch a decode; kyber_simulate --seed 7 --runs 2 --error-rate 0.005: K7
+     launched, the "full recoveries" line equal to --device cpu's;
+     test_rust_package --seed 0: K6 launched; regular_ldpc_code (1024 runs at
+     0.02), official_example and compute_bound log their lines; then one
+     process, python -m sca_ldpc_tpu_torch.cli.main official_example --device
+     cuda, exits 0;
+ 23. path 10, the scripts in this process: attack_phase_profile at HQC-128
+     (phase 17's cell) for "circulant" and "general": recovered, the wall
+     split into decode (array building, statistics, K8's device time from
+     CUDA events around its launches, the rest), oracle and other (the
+     oracle's ciphertext flips inside it), one K8 launch a decode; the same
+     "circulant" run under cProfile (the functions with the most own time);
+     profile_trace (the HQC-128 FER step through K1 at batch 1024, 4 steps,
+     under torch.profiler): K1's share of the device time and the device's
+     idle share; sweep_hqc --batch-size 2 --decode-backend circulant over two
+     labels at 6000 oracle calls: each label's rows and marker, K8 launched.
 
 Then one JSON line of per-kernel results (time, plain version's time, the
-bound from ops/kernels/bounds.py with the work this run's inputs needed, and
-library_ms null: no single PyTorch call computes any of them), and as the
-last line {"ok": true, "device": {...}}.  Run from the repository root:
+bound from ops/kernels/bounds.py with the work this run's inputs needed,
+library_ms null: no single PyTorch call computes any of them, and the
+launches of every path's run, paths 9 and 10 included), and as the last line
+{"ok": true, "device": {...}}.  Run from the repository root:
 
     python3 chip_smoke.py
 """
 
 import json
+import os
 import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+from contextlib import nullcontext
 
 import numpy as np
 import torch
@@ -427,8 +456,11 @@ def main():
     kyber = _kyber_phases(dev, tag, k5_held)
     lean = _lean_phases(dev, tag, lib_paths["circulant_lean"], lay)
     _k1_sweep(dev, tag, lay)
-    attack = _attack_phases(dev, tag)
+    attack, attack_run = _attack_phases(dev, tag)
     _fer_phase(dev, tag)
+    entry_launches = _cli_phase(dev, tag, attack_run)
+    for name, n in _scripts_phase(dev, tag).items():
+        entry_launches[name] = entry_launches.get(name, 0) + n
 
     src = "sca_ldpc_tpu_torch/csrc/circulant_bp.cu"
     # K1's first iteration needs no phi a message under its one constant prior
@@ -437,7 +469,7 @@ def main():
     print(f"bounds [{card}]: K1 {k1_bound[0]:.3f} ms ({k1_bound[1]}), kernel at "
           f"{100 * k1_bound[0] / results['fer_ms']:.1f}%; K2 {k2_bound[0]:.3f} ms ({k2_bound[1]}), kernel at "
           f"{100 * k2_bound[0] / results['bp_ms']:.1f}%; {results['iters'] / CMP_FRAMES:.3f} iterations a frame")
-    print(json.dumps({"kernels": [
+    kernels = [
         _entry("circulant_fer_cuda", src, "sca_ldpc_tpu/ops/kernels/circulant_pallas.py:723",
                launches["circulant_fer_cuda"], k1_err, results["fer_ms"], results["fer_plain_ms"], k1_bound),
         _entry("circulant_bp_cuda", src, "sca_ldpc_tpu/ops/kernels/circulant_pallas.py:190",
@@ -446,7 +478,10 @@ def main():
         *kyber,
         *lean,
         *attack,
-    ]}))
+    ]
+    for k in kernels:  # paths 9 and 10 (phases 22 and 23) launch kernels of the earlier paths
+        k["launches"] += entry_launches.get(k["name"], 0)
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0
@@ -1001,26 +1036,9 @@ def _k1_sweep(dev, tag, lay128):
         del e_b
 
 
-class _TimedLib:
-    """K8's library with CUDA events recorded around each decode launch."""
-
-    def __init__(self, lib):
-        self.lib, self.events = lib, []
-
-    def multi_circulant_bp_decode(self, *args):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        rc = self.lib.multi_circulant_bp_decode(*args)
-        end.record()
-        self.events.append((start, end))
-        return rc
-
-    def __getattr__(self, name):
-        return getattr(self.lib, name)
-
-
 def _attack_phases(dev, tag):
-    """Phases 16-17; returns K8's entry of the JSON line."""
+    """Phases 16-20; returns K8's entry of the JSON line and phase 17's run
+    through "circulant" on the card (its tracking)."""
     from sca_ldpc_tpu_torch.models.hqc import simulate_hqc_idealized_oracle
     from sca_ldpc_tpu_torch.ops.kernels import circulant_bp_cuda, circulant_cuda, multi_circulant_bp_cuda, \
         multi_circulant_bp_plain
@@ -1030,8 +1048,8 @@ def _attack_phases(dev, tag):
         multi_circulant_occupancy,
         multi_circulant_ptxas,
     )
-    from sca_ldpc_tpu_torch.tools.attack_cells import ATTACK, BATCH, BLOCKS, ITERATIONS, cells, masked_cell, pick, \
-        record_sets
+    from sca_ldpc_tpu_torch.tools.attack_cells import ATTACK, BATCH, BLOCKS, ITERATIONS, cells, \
+        masked_cell, pick, record_sets
     from sca_ldpc_tpu_torch.utils import make_random_state
 
     # ---- phase 16: K8 against its plain version on the attack's check sets
@@ -1109,25 +1127,20 @@ def _attack_phases(dev, tag):
     for kernel in (circulant_bp_cuda, multi_circulant_bp_cuda):
         kernel.launches = 0
     runs = {}
-    lib = circulant_cuda._multi_lib
     for backend, device in (("circulant", dev), ("general", dev), ("padded", dev), ("circulant", "cpu")):
-        timed = _TimedLib(lib()) if backend == "circulant" and device == dev else None
-        if timed:
-            circulant_cuda._multi_lib = lambda: timed
+        timing = circulant_cuda.timed_multi_decodes() if backend == "circulant" and device == dev else nullcontext()
         t0 = time.perf_counter()
-        try:
+        with timing as timed:
             ok, tracking = simulate_hqc_idealized_oracle(make_random_state(0), decode_backend=backend, device=device,
                                                          **ATTACK)
             if device == dev:
                 torch.cuda.synchronize()
-        finally:
-            circulant_cuda._multi_lib = lib
         wall = time.perf_counter() - t0
         runs[backend, str(device)] = (ok, tracking)
         k8 = ""
         if timed:
             launches = multi_circulant_bp_cuda.launches
-            k8_s = sum(start.elapsed_time(end) for start, end in timed.events) / 1e3
+            k8_s = timed.seconds()
             k8 = (f" (K8's own device time {k8_s:.4f} s over its {len(timed.events)} launches, the rest "
                   f"{tracking.decode_seconds - k8_s:.4f} s)")
         print(f"phase 17 attack decode_backend {backend} on {device}: success {ok}, {tracking.num_oracle_calls} "
@@ -1151,7 +1164,7 @@ def _attack_phases(dev, tag):
     launches += _timing_phase(dev, tag)
     print(f"K8 launches on the main paths (phases 17, 19, 20): {launches}")
     return [_entry("multi_circulant_bp_cuda", "sca_ldpc_tpu_torch/csrc/circulant_multi.cu",
-                   "sca_ldpc_tpu/ops/circulant_bp.py:126", launches, k8_err, *main)]
+                   "sca_ldpc_tpu/ops/circulant_bp.py:126", launches, k8_err, *main)], card
 
 
 def _instance_phase(dev, tag, sets):
@@ -1244,21 +1257,16 @@ def _batched_phase(dev, tag):
     kw = {k: v for k, v in ATTACK.items() if k not in ("keyfile", "error_rate", "param_set")}
     with fixture_keys() as keypair:
         executor = batched.BatchedCirculantDecodeExecutor(len(seeds), device=dev)
-        lib = circulant_cuda._multi_lib
-        timed = _TimedLib(lib())
-        circulant_cuda._multi_lib = lambda: timed
         torch.cuda.synchronize()
         multi_circulant_bp_cuda.launches = 0
         t0 = time.perf_counter()
-        try:
+        with circulant_cuda.timed_multi_decodes() as timed:
             results, rounds = simulate_hqc_attacks_batched(seeds, decode_backend="circulant", executor=executor,
                                                            device=dev, **kw)
             torch.cuda.synchronize()
-        finally:
-            circulant_cuda._multi_lib = lib
         wall = time.perf_counter() - t0
         launches = multi_circulant_bp_cuda.launches
-        k8_s = sum(start.elapsed_time(end) for start, end in timed.events) / 1e3
+        k8_s = timed.seconds()
         solo_s, same = 0.0, []
         for seed, (ok, tracking) in zip(seeds, results):
             t0 = time.perf_counter()
@@ -1361,6 +1369,241 @@ def _fer_phase(dev, tag):
         if abs(fer["cuda"] - fer["cpu"]) > 3 * sigma:
             raise SystemExit(f"binary FER at rate {rate} on the card differs from the CPU run by more than 3 "
                              "binomial sigma")
+
+
+class _LogCapture:
+    """The root logger's records kept in a list while the context lasts (so the
+    CLI's logging.basicConfig adds no handler of its own); the root level is
+    restored after."""
+
+    def __enter__(self):
+        import logging
+
+        self.messages, root = [], logging.getLogger()
+        self.level = root.level
+        self.handler = logging.Handler(logging.INFO)
+        self.handler.emit = lambda record: self.messages.append(record.getMessage())
+        root.addHandler(self.handler)
+        return self
+
+    def __exit__(self, *exc):
+        import logging
+
+        root = logging.getLogger()
+        root.removeHandler(self.handler)
+        root.setLevel(self.level)
+
+    def lines(self, text):
+        return [m for m in self.messages if text in m]
+
+
+def _cli(argv):
+    """``python -m sca_ldpc_tpu_torch.cli.main <argv>`` in this process; returns
+    the log messages it wrote."""
+    from sca_ldpc_tpu_torch.cli.main import main as cli_main
+
+    saved = sys.argv
+    sys.argv = ["sca_ldpc_tpu_torch.cli.main", *argv]
+    try:
+        with _LogCapture() as cap:
+            cli_main()
+    finally:
+        sys.argv = saved
+    return cap
+
+
+def _launch_counts():
+    from sca_ldpc_tpu_torch.ops.kernels import (
+        chain_exclusive_cuda,
+        circulant_fer_cuda,
+        multi_circulant_bp_cuda,
+        qary_min_sum_fused_cuda,
+        qary_special_min_sum_fused_cuda,
+    )
+
+    return {k.__name__: k for k in (multi_circulant_bp_cuda, qary_special_min_sum_fused_cuda, qary_min_sum_fused_cuda,
+                                    chain_exclusive_cuda, circulant_fer_cuda)}
+
+
+def _counted(fn):
+    """Run ``fn()`` with every launch count set to 0 just before and read just
+    after; returns (its result, the counts)."""
+    kernels = _launch_counts()
+    torch.cuda.synchronize()
+    for k in kernels.values():
+        k.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {name: k.launches for name, k in kernels.items()}
+
+
+def _cli_phase(dev, tag, attack_run):
+    """Phase 22 (path 9): the CLI's commands on the card, in this process;
+    ``attack_run``: phase 17's "circulant" run on the card (its tracking),
+    which the CLI's hqc_simulate must equal.  Returns the launches."""
+    import tempfile
+
+    from sca_ldpc_tpu_torch.scripts._timing_common import spy_trackings
+    from sca_ldpc_tpu_torch.tools.attack_cells import KEYFILE
+    from sca_ldpc_tpu_torch.utils.table import csv_text
+
+    total = {}
+
+    def add(counts):
+        for name, n in counts.items():
+            total[name] = total.get(name, 0) + n
+        return counts
+
+    with tempfile.TemporaryDirectory() as tmp:
+        csv = f"{tmp}/stats.csv"
+        made = []
+        restore = spy_trackings(made.append)
+        t0 = time.perf_counter()
+        try:
+            cap, counts = _counted(lambda: _cli(
+                ["hqc_simulate", "--seed", "0", "--key-file", str(KEYFILE), "--decode-every", "50", "--code-weight",
+                 "20", "--decode-backend", "circulant", "--max-oracle-calls", "60000", "--csv-output", csv]))
+        finally:
+            restore()
+        wall = time.perf_counter() - t0
+        add(counts)
+        tracking = made[0]
+        with open(csv) as f:
+            written = f.read()
+        same_csv = written == csv_text(attack_run.decoder_stats_table(label=None))
+        same = ([d["success"] for d in tracking.decoder_stats] == [d["success"] for d in attack_run.decoder_stats]
+                and tracking.num_oracle_calls == attack_run.num_oracle_calls)
+        k8 = counts["multi_circulant_bp_cuda"]
+        print(f"phase 22 CLI hqc_simulate --decode-backend circulant (seed 0, fixture key, device cuda): "
+              f"\"Successfully decoded\" logged {len(cap.lines('Successfully decoded'))}x; {tracking.num_oracle_calls} "
+              f"oracle calls, {len(tracking.decoder_stats)} decodes, K8 launches {k8}, {wall:.2f} s; equal to phase "
+              f"17's library run (success sequence, oracle calls) {same}, CSV rows equal to its table {same_csv} "
+              f"({written.count(chr(10)) - 1} rows) {tag}")
+        if not (same and same_csv and cap.lines("Successfully decoded")):
+            raise SystemExit("the CLI's hqc_simulate differs from phase 17's run or did not recover the key")
+        if k8 != len(tracking.decoder_stats) or not k8:
+            raise SystemExit(f"the CLI's hqc_simulate launched K8 {k8} times for {len(tracking.decoder_stats)} decodes")
+
+    lines = {}
+    for device in ("cuda", "cpu"):
+        argv = ["kyber_simulate", "--seed", "7", "--runs", "2", "--error-rate", "0.005", "--device", device]
+        t0 = time.perf_counter()
+        cap, counts = _counted(lambda: _cli(argv))
+        lines[device] = [m.split(" ", 1)[1] for m in cap.lines("full recoveries")]
+        if device == "cuda":
+            add(counts)
+            k7, k7_s = counts["qary_special_min_sum_fused_cuda"], time.perf_counter() - t0
+    print(f"phase 22 CLI kyber_simulate --seed 7 --runs 2 --error-rate 0.005: card {lines['cuda']} ({k7} K7 launches, "
+          f"{k7_s:.2f} s), --device cpu {lines['cpu']} {tag}")
+    if not lines["cuda"] or lines["cuda"] != lines["cpu"] or not k7:
+        raise SystemExit("the CLI's kyber_simulate: no K7 launch, or its line differs from the CPU run's")
+
+    t0 = time.perf_counter()
+    cap, counts = _counted(lambda: _cli(["test_rust_package", "--seed", "0"]))
+    add(counts)
+    k6 = counts["qary_min_sum_fused_cuda"]
+    print(f"phase 22 CLI test_rust_package --seed 0 (q-ary FER, batch --threads 4): {cap.lines('Success ratio')}, "
+          f"K6 launches {k6}, {time.perf_counter() - t0:.2f} s {tag}")
+    if not k6 or not cap.lines("Success ratio"):
+        raise SystemExit("the CLI's test_rust_package did not launch K6 or logged no success ratio")
+
+    for argv, want in ((["regular_ldpc_code", "--seed", "0", "--runs", "1024", "--error-rate", "0.02"], "Success ratio"),
+                       (["official_example", "--seed", "0", "--runs", "10", "--error-rate", "0.05"], "Success ratio"),
+                       (["compute_bound", "--error-rate", "0.11"], "C, where R = ")):
+        t0 = time.perf_counter()
+        cap = _cli(argv)
+        got = cap.lines(want)
+        print(f"phase 22 CLI {' '.join(argv)}: {got} ({time.perf_counter() - t0:.2f} s)")
+        if not got:
+            raise SystemExit(f"the CLI's {argv[0]} logged no {want!r} line")
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "sca_ldpc_tpu_torch.cli.main", "official_example", "--seed", "0",
+                          "--runs", "100", "--error-rate", "0.05", "--device", "cuda"],
+                         capture_output=True, text=True, timeout=300)
+    ratio = [ln.split(" INFO ", 1)[-1] for ln in out.stderr.splitlines() if "Success ratio" in ln]
+    print(f"phase 22 python -m sca_ldpc_tpu_torch.cli.main official_example --device cuda: rc {out.returncode}, "
+          f"{ratio} ({time.perf_counter() - t0:.2f} s with the process's start)")
+    if out.returncode != 0 or not ratio:
+        raise SystemExit(f"the CLI as a process failed: {out.stderr[-2000:]}")
+    print(f"phase 22 launches through the CLI: {total}")
+    return total
+
+
+def _scripts_phase(dev, tag):
+    """Phase 23 (path 10): the scripts on the card.  Returns the launches."""
+    import contextlib
+    import io
+    import tempfile
+
+    from sca_ldpc_tpu_torch.scripts import attack_phase_profile, profile_trace, sweep_hqc
+    from sca_ldpc_tpu_torch.tools.attack_cells import KEYFILE
+
+    total = {}
+
+    def add(counts):
+        for name, n in counts.items():
+            total[name] = total.get(name, 0) + n
+
+    with tempfile.TemporaryDirectory() as tmp:
+        for backend, top in (("circulant", 0), ("general", 0), ("circulant", 12)):
+            argv = ["--out", f"{tmp}/profile.json", "--param-set", "128", "--code-weight", "20", "--decode-every",
+                    "50", "--seed", "0", "--key-file", str(KEYFILE), "--decode-backend", backend, "--device", "cuda"]
+            with _LogCapture(), contextlib.redirect_stdout(io.StringIO()):  # the script prints its artifact
+                art, counts = _counted(lambda: attack_phase_profile.main(argv + ["--cprofile", str(top)]))
+            add(counts)
+            if top:
+                print(f"phase 23 attack_phase_profile {backend} under cProfile: wall {art['wall_seconds']:.3f} s "
+                      f"(slowed by the profiler); the {top} functions with the most own time: " + " | ".join(
+                          f"{f['function']} {f['calls']} calls {f['own_seconds']:.4f} s own, "
+                          f"{f['cumulative_seconds']:.4f} s cumulative" for f in art["cprofile_top"]))
+            else:
+                k8 = ""
+                if art["k8_seconds"] is not None:
+                    k8 = (f", K8 {art['k8_seconds']:.4f} s over {art['k8_launches']} launches (CUDA events), the "
+                          f"decode's rest {art['decode_rest_seconds']:.4f} s (copies, launch, syncs)")
+                print(f"phase 23 attack_phase_profile HQC-128 {backend} (seed 0, fixture key): success "
+                      f"{art['success']}, {art['oracle_calls']} oracle calls, {art['num_decodes']} decodes; wall "
+                      f"{art['wall_seconds']:.4f} s = decode {art['decode_seconds']:.4f} + oracle "
+                      f"{art['oracle_seconds']:.4f} + other {art['other_seconds']:.4f} (of which the oracle's "
+                      f"{art['num_flips']} ciphertext flips {art['oracle_flip_seconds']:.4f}); inside the decodes: array "
+                      f"building {art['decode_build_seconds']:.4f} s, statistics {art['decode_stats_seconds']:.4f} s"
+                      f"{k8}; {art['num_raw_queries']} _raw queries {tag}")
+            if not art["success"] or art["decode_seconds"] + art["oracle_seconds"] > art["wall_seconds"]:
+                raise SystemExit(f"attack_phase_profile {backend}: no recovery, or its phases exceed the wall")
+            if backend == "circulant" and counts["multi_circulant_bp_cuda"] != art["num_decodes"]:
+                raise SystemExit(f"attack_phase_profile: {counts['multi_circulant_bp_cuda']} K8 launches for "
+                                 f"{art['num_decodes']} decodes")
+
+        with contextlib.redirect_stdout(io.StringIO()):
+            summary, counts = _counted(lambda: profile_trace.main(["--out", f"{tmp}/trace.json"]))
+        add(counts)
+        print(f"phase 23 profile_trace: HQC-128 FER step (K1), batch {summary['batch']}, {summary['steps']} steps, "
+              f"rate {summary['error_rate']}: success {summary['success_rate']:.6f}; K1 {summary['k1_seconds']:.6f} s "
+              f"of {summary['device_seconds']:.6f} s device time (share {summary['k1_share']:.4f}); device idle share "
+              f"{summary['idle_share']:.4f} of its {summary['device_span_seconds']:.6f} s span; trace "
+              f"{os.path.getsize(summary['trace'])} bytes; K1 launches {counts['circulant_fer_cuda']} {tag}")
+        if summary["k1_seconds"] <= 0 or counts["circulant_fer_cuda"] < summary["steps"]:
+            raise SystemExit("profile_trace: K1 does not show in the trace")
+
+        csv = f"{tmp}/sweep.csv"
+        argv = ["--csv", csv, "--param-set", "128", "--weights", "20", "--labels", "a", "b", "--decode-every", "50",
+                "--max-oracle-calls", "6000", "--batch-size", "2", "--decode-backend", "circulant", "--device", "cuda"]
+        t0 = time.perf_counter()
+        with _LogCapture():
+            _none, counts = _counted(lambda: sweep_hqc.main(argv))
+        add(counts)
+        with open(csv) as f:
+            rows = f.read().splitlines()[1:]
+        markers = sorted(os.listdir(csv + ".state"))
+        labels = sorted({r.split(",", 1)[0] for r in rows})
+        print(f"phase 23 sweep_hqc --batch-size 2 --decode-backend circulant, labels a b, w 20, 6000 oracle calls: "
+              f"{len(rows)} CSV rows of labels {labels}, markers {markers}, K8 launches "
+              f"{counts['multi_circulant_bp_cuda']} ({time.perf_counter() - t0:.2f} s) {tag}")
+        if markers != ["128-a-w20.done", "128-b-w20.done"] or labels != ["a", "b"] or not counts[
+                "multi_circulant_bp_cuda"]:
+            raise SystemExit("sweep_hqc: missing markers or rows, or no K8 launch")
+    print(f"phase 23 launches through the scripts: {total}")
+    return total
 
 
 if __name__ == "__main__":

@@ -2,28 +2,49 @@
 for code-based key-recovery side-channel attack simulation, on NVIDIA GPUs.
 
 A second package beside the JAX package ``sca_ldpc_tpu``, which stays the
-reference; module paths mirror it.  Ported so far:
+reference; module paths mirror it.  Ported:
 
-- ``codes``:    the regular, quasi-cyclic and q-ary QC constructors, the
-                distance-spectrum-constrained random circulant, and the
+- ``codes``:    the regular, quasi-cyclic, random and q-ary QC constructors,
+                the distance-spectrum-constrained random circulant, the
                 layouts :class:`~sca_ldpc_tpu_torch.codes.layout.CodeLayout`
-                and :class:`~sca_ldpc_tpu_torch.codes.layout.CirculantLayout`
-- ``channels``: probability -> LLR conversions
-- ``utils``:    seeding (``numpy.random.RandomState``, ``torch.Generator``)
+                and :class:`~sca_ldpc_tpu_torch.codes.layout.CirculantLayout`,
+                and ``codes.util`` (``rep_code``, GF(2) rank, code parameters)
+- ``channels``: probability -> LLR conversions and
+                :class:`~sca_ldpc_tpu_torch.channels.errors.ErrorsProvider`
+                (per-position error distributions, sampled on the device)
+- ``utils``:    seeding (``numpy.random.RandomState``, ``torch.Generator``),
+                the device rule (``utils.device``), the CLI's
+                ``CommandsBase`` and pandas-free CSV tables (``utils.table``)
 - ``ops``:      :class:`~sca_ldpc_tpu_torch.ops.circulant_bp.CirculantBPDecoder`,
-                syndrome BP on ``[circulant | I]`` codes, with a hand-written
-                CUDA kernel (``csrc/circulant_bp.cu``) on the GPU;
+                syndrome BP on ``[circulant | I]`` codes, and the masked
+                multi-circulant decode of the HQC attack, with hand-written
+                CUDA kernels (``csrc/circulant_bp.cu``, ``circulant_lean.cu``,
+                ``circulant_multi.cu``) on the GPU;
+                :class:`~sca_ldpc_tpu_torch.ops.binary_bp.BinaryBPDecoder`,
+                BP on general binary codes;
                 :class:`~sca_ldpc_tpu_torch.ops.qary.QaryDecoder`, q-ary
                 min-sum with the min-plus chain (``ops/minplus.py``), and
                 :class:`~sca_ldpc_tpu_torch.ops.qary_special.QarySpecialDecoder`,
                 the two-alphabet decoder of ``[H'|I]`` codes, with three
                 hand-written CUDA kernels (``csrc/qary_min_sum.cu``); the
                 decoder-name registry
-- ``models``:   ``models.kyber``, the Kyber-768 key-recovery pipeline
-                (secrets, pattern databases, posteriors, the fixed-pattern
-                and adaptive attack simulations)
+- ``models``:   ``models.hqc``, the HQC key-recovery attack (the native HQC
+                binding, the fast, native and measured-timing oracles, three
+                decode backends, batched multi-instance attacks, checkpoints,
+                ``hqc_eval_oracle``), and ``models.kyber``, the Kyber-768
+                key-recovery pipeline (fixed-pattern and adaptive)
 - ``parallel``: the single-device binary frame-error-rate step and loop
-- ``sim``:      the q-ary frame-error-rate simulation
+- ``sim``:      binary and q-ary frame-error-rate simulation
+- ``cli``:      ``python -m sca_ldpc_tpu_torch.cli.main <command>``, the JAX
+                CLI's 13 commands and flags plus ``--device``
+- ``viz``:      the attack statistics' plots (pandas, matplotlib, seaborn)
+- ``scripts``:  ``attack_phase_profile``, ``sweep_hqc``, ``profile_trace``
+                and the timing-attack scripts, each run as
+                ``python -m sca_ldpc_tpu_torch.scripts.<name>``
+- ``tools``:    the card's measurement harnesses (kernel forms, attack cells)
+
+Not ported yet: running across several devices (``parallel/{mesh,
+distributed}``, the sharded executors) and the Kyber and HQC-192 scripts.
 """
 
 __version__ = "0.1.0"

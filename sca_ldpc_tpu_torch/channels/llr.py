@@ -18,10 +18,16 @@ def binary_prior_llr(p_error):
     return torch.log((1.0 - p) / p)
 
 
-def probs_to_llr(probs):
-    """Q-ary min-sum LLRs: ``ln(max / p)`` along the last axis; zeros map to
-    +inf (decoder.rs:668-692; probabilities are assumed to sum to ~1)."""
+def probs_to_llr(probs, axis=-1, validate=False):
+    """Q-ary min-sum LLRs: ``ln(max / p)`` along ``axis``; zeros map to +inf.
+
+    Matches decoder.rs:668-692 exactly (including that probabilities are
+    assumed to sum to ~1; set ``validate=True`` to check it like the Rust
+    code does: ``ValueError`` unless every sum along ``axis`` is 1 +- 0.001).
+    """
     probs = torch.as_tensor(probs, dtype=torch.float32)
-    mx = torch.amax(probs, dim=-1, keepdim=True)
+    if validate and not bool(torch.all(torch.abs(probs.sum(dim=axis) - 1.0) < 1e-3)):
+        raise ValueError("channel probabilities must sum to 1 (+-0.001)")
+    mx = torch.amax(probs, dim=axis, keepdim=True)
     pos = probs > 0
     return torch.where(pos, torch.log(mx / torch.where(pos, probs, 1.0)), torch.inf)

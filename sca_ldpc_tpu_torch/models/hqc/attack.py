@@ -51,6 +51,7 @@ from ...codes.make_code import random_circulant_first_row
 from ...ops.binary_bp import BinaryBPDecoder
 from ...ops.circulant_bp import _multi_circulant_bp
 from ...utils import make_random_state
+from ...utils.device import resolve_device
 from .model import Hqc128, Hqc192, Hqc256
 from .tracking import (
     FlipStatus,
@@ -1050,10 +1051,7 @@ def simulate_hqc_idealized_oracle(
         raise ValueError(f"unknown oracle_backend: {oracle_backend}")
     if decode_backend not in DECODE_BACKENDS:
         raise ValueError(f"unknown decode_backend: {decode_backend}")
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device {device} requested but torch.cuda.is_available() is False; "
-                           'pass device="cpu" to decode on the CPU')
+    device = resolve_device(device)
     rng = make_random_state(rng)
     params = make_params(param_set, decode_every, weight, error_rate)
     logger.info(f"Params {params}")

@@ -39,6 +39,7 @@ import torch
 from ...ops.binary_bp import decode_received_instances
 from ...ops.circulant_bp import _multi_circulant_bp
 from ...utils import make_random_state
+from ...utils.device import resolve_device
 from .attack import make_params, simulate_hqc_idealized_oracle
 
 logger = logging.getLogger(__name__)
@@ -217,10 +218,7 @@ def simulate_hqc_attacks_batched(
     needs a CUDA device and raises without one.  An instance that fails
     raises its error here once every instance has ended.
     """
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device {device} requested but torch.cuda.is_available() is False; "
-                           'pass device="cpu" to decode on the CPU')
+    device = resolve_device(device)
     if executor is None:
         if decode_backend not in EXECUTORS:
             raise ValueError(f"unknown decode_backend: {decode_backend}")

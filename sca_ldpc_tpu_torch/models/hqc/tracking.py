@@ -8,11 +8,14 @@ good_flips, bad_flips, found_bad_satisfied_checks,
 found_bad_unsatisfied_checks, success.
 
 pandas is imported only by :meth:`HqcSimulationTracking.decoder_stats_data_frame`,
-so the attack runs where pandas is not installed.
+so the attack runs where pandas is not installed; :meth:`~HqcSimulationTracking.decoder_stats_table`
+gives the same rows without it (``utils/table.py`` writes them as CSV).
 """
 
 from enum import Enum
 from typing import Tuple
+
+from ...utils.table import table
 
 
 class FlipStatus(Enum):
@@ -111,18 +114,19 @@ class HqcSimulationTracking:
             }
         )
 
+    def decoder_stats_table(self, label=""):
+        """``(columns, rows)`` of the decoder stats without pandas: the
+        static columns ``label, alg, weight, epsilon0, epsilon1``, then each
+        decode's stats in the order they were added."""
+        static_columns = ["label", "alg", "weight", "epsilon0", "epsilon1"]
+        static_values = [label, self.params.HQC.name(), self.params.WEIGHT, self.params.EPSILON[0],
+                         self.params.EPSILON[1]]
+        dynamic_columns, rows = table(self.decoder_stats)
+        return static_columns + dynamic_columns, [static_values + r for r in rows]
+
     def decoder_stats_data_frame(self, label=""):
+        """:meth:`decoder_stats_table` as a ``pandas.DataFrame``."""
         import pandas as pd
 
-        static_columns = ["label", "alg", "weight", "epsilon0", "epsilon1"]
-        static_values = [
-            label,
-            self.params.HQC.name(),
-            self.params.WEIGHT,
-            self.params.EPSILON[0],
-            self.params.EPSILON[1],
-        ]
-        df = pd.DataFrame.from_dict(self.decoder_stats)
-        dynamic_columns = list(df.columns)
-        df[static_columns] = static_values
-        return df[static_columns + dynamic_columns]
+        columns, rows = self.decoder_stats_table(label)
+        return pd.DataFrame(rows, columns=columns)

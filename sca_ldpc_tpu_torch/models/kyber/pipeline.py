@@ -20,6 +20,7 @@ import numpy as np
 
 from ...ops.qary_special import QarySpecialDecoder
 from ...utils import make_random_state
+from ...utils.device import resolve_device
 from .params import BLOCK_LEN, ETA, NUM_BLOCKS
 from .patterns import coding_from_patterns, get_patterns
 from .posterior import posteriors_from_hard
@@ -132,6 +133,7 @@ def simulate_kyber_attack(
     """
     from .posterior import normalize_fp_fn, posteriors_from_hard_fpfn
 
+    device = resolve_device(device)
     rng = make_random_state(rng)
     patterns = get_patterns(ETA, accuracy, num_patterns, num_patterns_sum, sum_weight)
     H = gen_ldpc_matrix(sum_weight, rng, check_blocks)
@@ -290,6 +292,7 @@ def simulate_kyber_attack_adaptive(
     from .posterior import posteriors_from_hard, s_distribution_from_hard_y_adaptive
     from .secrets import sample_secret_coefs
 
+    device = resolve_device(device)
     rng = make_random_state(rng)
     pattern = get_restricted_single_patterns(eta, accuracy, avg_measurements)
     tree = tree_from_adaptive_pattern(pattern, eta=eta)

@@ -26,13 +26,16 @@ totals live (shared or device memory), threads a block and the padded plane
 stride; :func:`circulant_lean_launch` is the lean pair's (how many variables
 a thread stages in shared memory); :func:`multi_circulant_launch` is K8's
 cooperative grid for the card's resident blocks
-(:func:`multi_circulant_occupancy`).
+(:func:`multi_circulant_occupancy`).  Within :func:`multi_lib_installed`
+K8's wrapper launches another library's kernel, and within
+:func:`timed_multi_decodes` each K8 launch is timed with CUDA events.
 
 Unlike the TPU kernels, the batch need not be a multiple of a tile and the
 shifts are runtime data.  K1/K2 keep f32 messages (their TPU kernels store
 bf16 v2c); the lean kernels keep the TPU kernel's bf16 planes.
 """
 
+import contextlib
 import ctypes
 import functools
 import re
@@ -630,6 +633,51 @@ def _multi_lib():
     lib.multi_circulant_bp_occupancy.argtypes = [i, i, i, i, i, p]
     lib.multi_circulant_bp_occupancy.restype = i
     return lib
+
+
+@contextlib.contextmanager
+def multi_lib_installed(lib):
+    """Within the block, K8's wrapper launches ``lib``'s kernel: a library
+    with K8's interface built from another source, or a :class:`TimedMultiLib`."""
+    global _multi_lib
+    saved = _multi_lib
+    _multi_lib = lambda: lib  # noqa: E731
+    try:
+        yield lib
+    finally:
+        _multi_lib = saved
+
+
+class TimedMultiLib:
+    """K8's library with CUDA events recorded around each decode launch."""
+
+    def __init__(self, lib):
+        self.lib, self.events = lib, []
+
+    def multi_circulant_bp_decode(self, *args):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        rc = self.lib.multi_circulant_bp_decode(*args)
+        end.record()
+        self.events.append((start, end))
+        return rc
+
+    def seconds(self):
+        """K8's device time summed over the launches so far."""
+        if self.events:
+            self.events[-1][1].synchronize()
+        return sum(start.elapsed_time(end) for start, end in self.events) / 1e3
+
+    def __getattr__(self, name):
+        return getattr(self.lib, name)
+
+
+@contextlib.contextmanager
+def timed_multi_decodes():
+    """Within the block, each K8 launch is timed with CUDA events; yields the
+    :class:`TimedMultiLib` that holds them (``.events``, ``.seconds()``)."""
+    with multi_lib_installed(TimedMultiLib(_multi_lib())) as timed:
+        yield timed
 
 
 @functools.cache

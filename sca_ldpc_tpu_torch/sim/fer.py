@@ -19,6 +19,7 @@ from ..codes.layout import CodeLayout
 from ..ops.binary_bp import BinaryBPDecoder, _pad1
 from ..ops.qary import QaryDecoder
 from ..utils import make_random_state, rng_to_torch_generator
+from ..utils.device import resolve_device
 
 logger = logging.getLogger(__name__)
 
@@ -55,10 +56,7 @@ def simulate_frame_error_rate(
     H = np.asarray(H)
     n = H.shape[1]
     rng = make_random_state(rng)
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device {device} requested but torch.cuda.is_available() is False; "
-                           'pass device="cpu" to run on the CPU')
+    device = resolve_device(device)
     max_iter = int(max_iter if max_iter is not None else n)
 
     channel_probs = errors_provider.get_binary_channel_probs(n)
@@ -114,7 +112,7 @@ def simulate_frame_error_rate_qary(
     H = np.asarray(H)
     n = H.shape[1]
     rng = make_random_state(rng)
-    device = torch.device(device)
+    device = resolve_device(device)
     bb = 2 * b_range + 1
 
     p_lin = 1.0 / bb

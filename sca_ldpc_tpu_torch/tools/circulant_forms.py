@@ -240,16 +240,6 @@ def _build_k8_copy(src, name):
     return lib, log
 
 
-def _with_multi_lib(lib, fn):
-    """Run ``fn()`` with K8's wrapper launching ``lib``'s kernel."""
-    saved = circulant_cuda._multi_lib
-    circulant_cuda._multi_lib = lambda: lib
-    try:
-        return fn()
-    finally:
-        circulant_cuda._multi_lib = saved
-
-
 def _old_multi(lib, prior_c, prior_i, syn, shifts, max_iter, method="product_sum"):
     """The earlier form's K8 (its own wrapper)."""
     b, p, n = syn.shape
@@ -313,9 +303,10 @@ def _k8_cells(old_lib, copies, dev, card):
                     "new_share_of_bound": bound / t_new, "old_share_of_bound": bound / t_old,
                     "max_iter": iters, "variants": {}}
             for vlabel, lib, meaningful in copies:
-                v = {"ms": _with_multi_lib(lib, lambda: _ms(new))}
-                if meaningful:
-                    v["frames_equal_to_plain"] = _same_frames(_with_multi_lib(lib, new), out_p)
+                with circulant_cuda.multi_lib_installed(lib):
+                    v = {"ms": _ms(new)}
+                    if meaningful:
+                        v["frames_equal_to_plain"] = _same_frames(new(), out_p)
                 cell["variants"][vlabel] = v
             cells.append(cell)
             its = max(max(cell["iterations"]), 1)

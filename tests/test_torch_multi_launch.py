@@ -5,7 +5,8 @@ holds resident, the fewer.  Also that the decode entry of
 no synchronisation, and that the edited copies ``tools/k8_variants.py``
 writes for the forms tool still apply to the source.  That the blocks' grid
 stride covers every tile is tested on the card, at grids 1, 2 and the
-resident maximum (``tests/test_torch_cuda_multi.py``)."""
+resident maximum (``tests/test_torch_cuda_multi.py``).  And that
+``multi_lib_installed`` gives the wrapper another library and restores its own."""
 
 import re
 from pathlib import Path
@@ -68,3 +69,25 @@ def test_k8_variants_apply(tmp_path, name):
         assert text.count("grid.sync()") == 3
         assert text.count("false && tile < ") == 3 - k8_variants.FLOORS[name]
         assert "run[x] = ~0u;" in text
+
+
+def test_multi_lib_installed_restores():
+    """Within ``multi_lib_installed`` K8's wrapper finds the given library;
+    after the block, also one left by an exception, it finds its own again.
+    A ``TimedMultiLib`` passes every other name through to its library."""
+    from types import SimpleNamespace
+
+    from sca_ldpc_tpu_torch.ops.kernels import circulant_cuda
+
+    original = circulant_cuda._multi_lib
+    lib = SimpleNamespace(multi_circulant_bp_occupancy=len)
+    timed = circulant_cuda.TimedMultiLib(lib)
+    with circulant_cuda.multi_lib_installed(timed) as got:
+        assert got is timed and circulant_cuda._multi_lib() is timed
+        assert circulant_cuda._multi_lib().multi_circulant_bp_occupancy is len
+    assert circulant_cuda._multi_lib is original
+    with pytest.raises(ValueError, match="inside"):
+        with circulant_cuda.multi_lib_installed(lib):
+            raise ValueError("inside")
+    assert circulant_cuda._multi_lib is original
+    assert timed.events == [] and timed.seconds() == 0
