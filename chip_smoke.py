@@ -26,7 +26,11 @@ path 8 binary FER simulation on a (3, 6)-regular LDPC code of 300 columns
 (python -m sca_ldpc_tpu_torch.cli.main), which reaches K8, K7 and K6; path 10
 the scripts (python -m sca_ldpc_tpu_torch.scripts.<name>): the attack's
 phase profile (K8), the FER step's profiler trace (K1) and the batched sweep
-(K8).
+(K8).  Path 11 is several ranks on torch.distributed (sca_ldpc_tpu_torch.parallel):
+the sharded FER step (K1, K2), masked decode (K8), q-ary FER step (K6) and
+special decode (K7), and the batched attack's rounds split over the ranks;
+path 12 the last scripts: the Kyber curves and cross-validation (K7),
+fer_curve (K1) and hqc192_diagnostics (host code).
 
 Phases (each prints one line; any failure exits non-zero):
   1. build the CUDA kernels from csrc/ (one nvcc per source, in parallel)
@@ -197,12 +201,39 @@ Phases (each prints one line; any failure exits non-zero):
      profile_trace (the HQC-128 FER step through K1 at batch 1024, 4 steps,
      under torch.profiler): K1's share of the device time and the device's
      idle share; sweep_hqc --batch-size 2 --decode-backend circulant over two
-     labels at 6000 oracle calls: each label's rows and marker, K8 launched.
+     labels at 6000 oracle calls: each label's rows and marker, K8 launched;
+ 24. path 11, several ranks on the one card: a world of one rank over NCCL
+     in this process runs every sharded function (sharded_fer_simulation at
+     the HQC-128 FER cell, 8192 frames at batch 4096, at its rate 0.01 and at
+     0.05, where many frames fail, backends "fused" (K1) and "decode" (K2),
+     each equal to fer_simulation count for count; the
+     sharded masked decode on phase 18's I = 16 round, equal to the one
+     [I, P, W] launch; the sharded q-ary FER step on DecoderN450R150V3C7B1 at
+     batch 4096 (K6), equal to two ranks' rows run one after the other; the
+     sharded special decode on 64 DecoderN1280R512SW6 instances (K7), equal
+     to QarySpecialDecoder on all of them; ShardedCirculantDecodeExecutor with
+     crosscheck=True on seeds 1-2 (the fixture key, decode_every 25, weight
+     20, 2,500 oracle calls, max_iter 50), equal to the unsharded batched
+     run); then four worlds of two processes at once, both ranks on cuda:0
+     over gloo (NCCL refuses two ranks on one card), run multihost_fer at that
+     FER cell, one a backend and rate, each equal to the one-rank run; the
+     launches of
+     K1, K2, K6, K7 and K8 counted, the children's from their JSON line
+     (each kernel launched, or the phase fails);
+ 25. path 12, the scripts in this process: kyber_curve (2 runs at 0.995 and
+     0.9) and kyber_noise_curve (2 runs, 17 configurations) on the card,
+     each CSV's bytes equal to --device cpu's and K7 launched;
+     kyber_crossvalidate --runs 1, K7 and the float64 enumeration model
+     agreeing on all 768 coefficients; fer_curve (K1, 4096 frames at rates
+     0.01 and 0.04, 4 frames of the NumPy reference each); hqc192_diagnostics
+     --phases A at HQC-192 (4096 + 8192 plaintexts; no 4-expansion
+     plaintext), then phases B and C at HQC-128 at small counts over the
+     host's cycle counter and over the modelled one (mechanics, ungated).
 
 Then one JSON line of per-kernel results (time, plain version's time, the
 bound from ops/kernels/bounds.py with the work this run's inputs needed,
 library_ms null: no single PyTorch call computes any of them, and the
-launches of every path's run, paths 9 and 10 included), and as the last line
+launches of every path's run, paths 9-12 included), and as the last line
 {"ok": true, "device": {...}}.  Run from the repository root:
 
     python3 chip_smoke.py
@@ -456,11 +487,16 @@ def main():
     kyber = _kyber_phases(dev, tag, k5_held)
     lean = _lean_phases(dev, tag, lib_paths["circulant_lean"], lay)
     _k1_sweep(dev, tag, lay)
-    attack, attack_run = _attack_phases(dev, tag)
+    attack, attack_run, sets = _attack_phases(dev, tag)
     _fer_phase(dev, tag)
     entry_launches = _cli_phase(dev, tag, attack_run)
-    for name, n in _scripts_phase(dev, tag).items():
-        entry_launches[name] = entry_launches.get(name, 0) + n
+    for phase, run in ((23, lambda: _scripts_phase(dev, tag)), (24, lambda: _world_phase(dev, tag, lay, sets)),
+                       (25, lambda: _scripts_rest_phase(dev, tag))):
+        t0 = time.perf_counter()
+        for name, n in run().items():
+            entry_launches[name] = entry_launches.get(name, 0) + n
+        if phase > 23:
+            print(f"phase {phase} took {time.perf_counter() - t0:.1f} s")
 
     src = "sca_ldpc_tpu_torch/csrc/circulant_bp.cu"
     # K1's first iteration needs no phi a message under its one constant prior
@@ -479,7 +515,7 @@ def main():
         *lean,
         *attack,
     ]
-    for k in kernels:  # paths 9 and 10 (phases 22 and 23) launch kernels of the earlier paths
+    for k in kernels:  # paths 9-12 (phases 22-25) launch kernels of the earlier paths
         k["launches"] += entry_launches.get(k["name"], 0)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1037,8 +1073,8 @@ def _k1_sweep(dev, tag, lay128):
 
 
 def _attack_phases(dev, tag):
-    """Phases 16-20; returns K8's entry of the JSON line and phase 17's run
-    through "circulant" on the card (its tracking)."""
+    """Phases 16-20; returns K8's entry of the JSON line, phase 17's run
+    through "circulant" on the card (its tracking) and phase 16's check sets."""
     from sca_ldpc_tpu_torch.models.hqc import simulate_hqc_idealized_oracle
     from sca_ldpc_tpu_torch.ops.kernels import circulant_bp_cuda, circulant_cuda, multi_circulant_bp_cuda, \
         multi_circulant_bp_plain
@@ -1164,7 +1200,7 @@ def _attack_phases(dev, tag):
     launches += _timing_phase(dev, tag)
     print(f"K8 launches on the main paths (phases 17, 19, 20): {launches}")
     return [_entry("multi_circulant_bp_cuda", "sca_ldpc_tpu_torch/csrc/circulant_multi.cu",
-                   "sca_ldpc_tpu/ops/circulant_bp.py:126", launches, k8_err, *main)], card
+                   "sca_ldpc_tpu/ops/circulant_bp.py:126", launches, k8_err, *main)], card, sets
 
 
 def _instance_phase(dev, tag, sets):
@@ -1415,6 +1451,7 @@ def _cli(argv):
 def _launch_counts():
     from sca_ldpc_tpu_torch.ops.kernels import (
         chain_exclusive_cuda,
+        circulant_bp_cuda,
         circulant_fer_cuda,
         multi_circulant_bp_cuda,
         qary_min_sum_fused_cuda,
@@ -1422,7 +1459,7 @@ def _launch_counts():
     )
 
     return {k.__name__: k for k in (multi_circulant_bp_cuda, qary_special_min_sum_fused_cuda, qary_min_sum_fused_cuda,
-                                    chain_exclusive_cuda, circulant_fer_cuda)}
+                                    chain_exclusive_cuda, circulant_fer_cuda, circulant_bp_cuda)}
 
 
 def _counted(fn):
@@ -1603,6 +1640,267 @@ def _scripts_phase(dev, tag):
                 "multi_circulant_bp_cuda"]:
             raise SystemExit("sweep_hqc: missing markers or rows, or no K8 launch")
     print(f"phase 23 launches through the scripts: {total}")
+    return total
+
+
+WORLD_RUNS, WORLD_BATCH = 8192, 4096  # the HQC-128 FER cell of the several-rank runs
+WORLD_RATES = (ERR, 0.05)  # the cell's rate, where every frame decodes, and one where many fail
+WORLD_KERNELS = ("circulant_fer_cuda", "circulant_bp_cuda", "qary_min_sum_fused_cuda",
+                 "qary_special_min_sum_fused_cuda", "multi_circulant_bp_cuda")  # K1, K2, K6, K7, K8
+
+
+def _world_phase(dev, tag, lay, sets):
+    """Phase 24 (path 11): several ranks on the one card.  ``lay``: the
+    HQC-128 code; ``sets``: phase 16's check sets.  Returns the launches, the
+    child processes' included."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from sca_ldpc_tpu_torch.codes import make_regular_ldpc_parity_check_matrix_identity
+    from sca_ldpc_tpu_torch.models.hqc import batched, simulate_hqc_attacks_batched
+    from sca_ldpc_tpu_torch.models.kyber import gen_ldpc_matrix, get_decoder
+    from sca_ldpc_tpu_torch.ops import QaryDecoder
+    from sca_ldpc_tpu_torch.ops.kernels import multi_circulant_bp_cuda
+    from sca_ldpc_tpu_torch.parallel import (
+        fer_simulation,
+        init_distributed,
+        make_mesh,
+        make_sharded_masked_decode,
+        make_sharded_qary_fer_step,
+        make_sharded_special_decode,
+        sharded_fer_simulation,
+    )
+    from sca_ldpc_tpu_torch.parallel.mesh import shard_rows
+    from sca_ldpc_tpu_torch.parallel.qary import make_qary_fer_rows
+    from sca_ldpc_tpu_torch.tools.attack_cells import ITERATIONS, fixture_keys, instance_cell, pick
+    from sca_ldpc_tpu_torch.utils import make_random_state
+
+    total = {}
+
+    def add(counts):
+        for name, n in counts.items():
+            total[name] = total.get(name, 0) + n
+        return counts
+
+    def gen(seed):
+        g = torch.Generator(device=dev)
+        g.manual_seed(seed)
+        return g
+
+    runs = [(backend, rate) for backend in ("fused", "decode") for rate in WORLD_RATES]
+    children = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            t0 = time.perf_counter()
+            init_distributed(f"file://{tmp}/rdv-nccl", 1, 0, device=dev)
+            try:
+                mesh = make_mesh(device=dev)
+                mesh.check_same([0], "the start")  # its first collectives (NCCL builds its communicator there)
+                group_backend = dist.get_backend(mesh.group)
+                print(f"phase 24 world of one: {mesh}, backend {group_backend} "
+                      f"({time.perf_counter() - t0:.2f} s to join and run a first collective)")
+                fer = {}
+                for backend, rate in runs:
+                    probs = np.full(lay.n_vars, rate, np.float32)
+                    t0 = time.perf_counter()
+                    got, counts = _counted(lambda: sharded_fer_simulation(
+                        lay, probs, WORLD_RUNS, gen(0), mesh, batch=WORLD_BATCH, max_iter=MAX_ITER, backend=backend))
+                    secs = time.perf_counter() - t0
+                    add(counts)
+                    single = fer_simulation(lay, probs, WORLD_RUNS, gen(0), dev, batch=WORLD_BATCH, max_iter=MAX_ITER,
+                                            backend=backend)
+                    fer[backend, rate] = got
+                    print(f"phase 24 sharded_fer_simulation HQC-128 {backend}, one rank over {group_backend}, "
+                          f"{WORLD_RUNS} frames at batch {WORLD_BATCH}, rate {rate}, {MAX_ITER} iterations: {got} in "
+                          f"{secs:.2f} s; fer_simulation {single}; launches {counts} {tag}")
+                    if got != single:
+                        raise SystemExit(f"phase 24: the sharded FER ({backend}, {rate}) differs from fer_simulation")
+
+                round_sets = pick(sets, "first", 8) + pick(sets, "last", 8)
+                args = instance_cell(round_sets, (1, 2, 3, 4, 5, 6, 7, 8) * 2, dev)
+                masked, counts = _counted(lambda: make_sharded_masked_decode(mesh, ITERATIONS)(*args))
+                add(counts)
+                one = multi_circulant_bp_cuda(*args, ITERATIONS)
+                same_masked = [bool(torch.equal(a, b)) for a, b in zip(masked, one)]
+                print(f"phase 24 sharded masked decode, phase 18's I = 16 round: converged {int(masked[2].sum())}/16, "
+                      f"equal to the one [I, P, W] launch (e_c, e_i, conv) {same_masked}; launches {counts}")
+
+                H = make_regular_ldpc_parity_check_matrix_identity(300, 150, 3, 6, make_random_state(1))
+                qdec = QaryDecoder(H.astype(np.int8), FER_B, FER_ITER, device=dev)
+                q, counts = _counted(lambda: make_sharded_qary_fer_step(qdec, FER_RATE, mesh)(gen(1), BATCH))
+                add(counts)
+                q = [int(x) for x in q]
+                local = make_qary_fer_rows(qdec, FER_RATE)
+                halves = [local(gen(1), BATCH, shard_rows(BATCH, r, 2)) for r in (0, 1)]
+                two = [sum(int(h[0]) for h in halves), max(int(h[1]) for h in halves),
+                       min(int(h[2]) for h in halves), BATCH]
+                print(f"phase 24 sharded q-ary FER step DecoderN450R150V3C7B1 (backend {qdec.backend}), batch {BATCH} "
+                      f"at {FER_RATE}: {q}; as two ranks' rows one after the other {two}; launches {counts}")
+
+                hk = gen_ldpc_matrix(KY_SW, 0, check_blocks=2)
+                kdec = get_decoder(KY_SW, hk, 2, KY_ITER, device=dev)
+                rng = np.random.RandomState(24)
+                p_b = rng.dirichlet(np.ones(5), size=(64, 768)).astype(np.float32)
+                p_s = rng.dirichlet(np.ones(25), size=(64, 512)).astype(np.float32)
+                hard, counts = _counted(lambda: make_sharded_special_decode(kdec, mesh)(p_b, p_s))
+                add(counts)
+                same_special = bool(torch.equal(hard, kdec.min_sum(p_b, p_s)))
+                print(f"phase 24 sharded special decode DecoderN1280R512SW6, 64 Dirichlet instances: equal to "
+                      f"QarySpecialDecoder on all {same_special}; launches {counts}")
+
+                kw = dict(max_oracle_calls=2500, decode_backend="circulant", device=dev)
+                with fixture_keys():
+                    executor = batched.ShardedCirculantDecodeExecutor(2, mesh, max_iter=50, crosscheck=True)
+                    t0 = time.perf_counter()
+                    (res, rounds), counts = _counted(lambda: simulate_hqc_attacks_batched(
+                        [1, 2], 25, 20, executor=executor, **kw))
+                    secs = time.perf_counter() - t0
+                    add(counts)
+                    ref, ref_rounds = simulate_hqc_attacks_batched(
+                        [1, 2], 25, 20, executor=batched.BatchedCirculantDecodeExecutor(2, max_iter=50, device=dev),
+                        **kw)
+                same_exec = rounds == ref_rounds and all(
+                    t.num_oracle_calls == u.num_oracle_calls
+                    and [d["success"] for d in t.decoder_stats] == [d["success"] for d in u.decoder_stats]
+                    for (_ok, t), (_ok2, u) in zip(res, ref))
+                print(f"phase 24 ShardedCirculantDecodeExecutor(crosscheck=True), seeds 1-2 on the fixture key, "
+                      f"decode_every 25, weight 20, 2500 calls, max_iter 50: {rounds} rounds, oracle calls "
+                      f"{[t.num_oracle_calls for _ok, t in res]}, decodes {[len(t.decoder_stats) for _ok, t in res]}, "
+                      f"{secs:.2f} s; equal to the unsharded batched run {same_exec}; launches {counts} {tag}")
+            finally:
+                dist.destroy_process_group()
+            if not (all(same_masked) and q == two and same_special and same_exec and rounds):
+                raise SystemExit("phase 24: a sharded function differs from its one-device run")
+
+            # four worlds of two ranks, both on cuda:0 over gloo (NCCL refuses two ranks on one card), one a backend
+            # and rate, at once; this process first gives back the blocks its allocator keeps from earlier phases
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            for backend, rate in runs:
+                argv = [sys.executable, "-m", "sca_ldpc_tpu_torch.scripts.multihost_fer", "--n", str(N),
+                        "--code-weight", str(W), "--error-rate", str(rate), "--max-iter", str(MAX_ITER), "--runs",
+                        str(WORLD_RUNS), "--batch", str(WORLD_BATCH), "--seed", "0", "--backend", backend,
+                        "--device", dev.type, "--dist-backend", "gloo", "--num-processes", "2", "--coordinator",
+                        f"file://{tmp}/rdv-{backend}-{rate}"]
+                children[backend, rate] = [
+                    subprocess.Popen(argv + ["--process-id", str(r)], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                     text=True, cwd=os.path.dirname(os.path.abspath(__file__)))
+                    for r in (0, 1)]
+
+            for (backend, rate), procs in children.items():
+                outs = [p.communicate(timeout=600) for p in procs]
+                if any(p.returncode for p in procs):
+                    raise SystemExit(f"phase 24: multihost_fer --backend {backend} --error-rate {rate} failed: "
+                                     f"{[o[1][-2000:] for o in outs]}")
+                got = json.loads(outs[0][0].strip().splitlines()[-1])
+                add(got["launches"])
+                same = (got["successes"], got["frames"]) == fer[backend, rate]
+                print(f"phase 24 multihost_fer --backend {backend} --error-rate {rate}, 2 processes on {got['device']} "
+                      f"over gloo, HQC-128, {WORLD_RUNS} frames at batch {WORLD_BATCH}: successes {got['successes']} of "
+                      f"{got['frames']} (FER {got['fer']}), mesh {got['mesh']}, launches over both ranks "
+                      f"{got['launches']}, {got['seconds']:.2f} s (the simulation's, beside the other worlds); equal "
+                      f"to one rank and fer_simulation {same} {tag}")
+                if not same or got["process_count"] != 2:
+                    raise SystemExit(f"phase 24: the 2-process run ({backend}, {rate}) differs from the 1-process run")
+        finally:
+            for procs in children.values():
+                for p in procs:
+                    if p.poll() is None:
+                        p.kill()
+                        p.wait()
+    print(f"phase 24 launches on path 11 (the children's included): {total}")
+    missing = [k for k in WORLD_KERNELS if not total.get(k)]
+    if missing:
+        raise SystemExit(f"phase 24: kernels of the several-rank path never launched: {missing}")
+    return total
+
+
+def _scripts_rest_phase(dev, tag):
+    """Phase 25 (path 12): the Kyber scripts, fer_curve and hqc192_diagnostics
+    on the card, in this process.  Returns the launches."""
+    import contextlib
+    import io
+    import tempfile
+
+    from sca_ldpc_tpu_torch.models.hqc import Hqc128
+    from sca_ldpc_tpu_torch.scripts import fer_curve, hqc192_diagnostics, kyber_crossvalidate, kyber_curve, \
+        kyber_noise_curve
+    from sca_ldpc_tpu_torch.tools.attack_cells import ModelledClock
+
+    total = {}
+
+    def add(counts):
+        for name, n in counts.items():
+            total[name] = total.get(name, 0) + n
+        return counts
+
+    def quiet(fn):
+        with _LogCapture(), contextlib.redirect_stdout(io.StringIO()):
+            return fn()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, script, argv in (("kyber_curve", kyber_curve, ["--runs", "2", "--accuracies", "0.995", "0.9"]),
+                                   ("kyber_noise_curve", kyber_noise_curve, ["--runs", "2", "--accuracies", "0.995"])):
+            csv = {}
+            for where, device in (("card", dev.type), ("cpu", "cpu")):
+                t0 = time.perf_counter()
+                _rows, counts = _counted(lambda: quiet(lambda: script.main(
+                    argv + ["--out", f"{tmp}/{name}-{where}.csv", "--device", device])))
+                with open(f"{tmp}/{name}-{where}.csv", "rb") as f:
+                    csv[where] = f.read()
+                if where == "card":
+                    add(counts)
+                    k7, secs = counts["qary_special_min_sum_fused_cuda"], time.perf_counter() - t0
+            print(f"phase 25 {name} {' '.join(argv)}: {len(csv['card'].splitlines()) - 1} rows, K7 launches {k7}, "
+                  f"{secs:.2f} s; the CSV's bytes equal to --device cpu's {csv['card'] == csv['cpu']} {tag}")
+            if csv["card"] != csv["cpu"] or not k7:
+                raise SystemExit(f"phase 25: {name} launched no K7 or its CSV differs from the CPU run's")
+
+        t0 = time.perf_counter()
+        art, counts = _counted(lambda: quiet(lambda: kyber_crossvalidate.main(["--runs", "1", "--device", dev.type])))
+        add(counts)
+        row = art["runs"][0]
+        print(f"phase 25 kyber_crossvalidate --runs 1: ours {row['correct_ours']}/{row['n']}, enumeration model "
+              f"{row['correct_enum']}/{row['n']}, agreement {row['agreement']}/{row['n']} (K7 "
+              f"{row['t_ours_s']} s, the float64 model {row['t_enum_s']} s); launches {counts}, "
+              f"{time.perf_counter() - t0:.2f} s {tag}")
+        if row["agreement"] != row["n"] or not counts["qary_special_min_sum_fused_cuda"]:
+            raise SystemExit("phase 25: kyber_crossvalidate's decoders disagree, or K7 was not launched")
+
+        t0 = time.perf_counter()
+        rows, counts = _counted(lambda: quiet(lambda: fer_curve.main(
+            ["--out", f"{tmp}/fer.csv", "--runs", "4096", "--cpu-runs", "4", "--rates", "0.01", "0.04", "--device",
+             dev.type])))
+        add(counts)
+        print(f"phase 25 fer_curve HQC-128, 4096 frames a rate (K1), 4 on the NumPy reference: "
+              + ", ".join(f"rate {r['error_rate']}: card FER {r['gpu_fer']}, CPU FER {r['cpu_fer']}" for r in rows)
+              + f"; launches {counts}, {time.perf_counter() - t0:.2f} s {tag}")
+        if len(rows) != 2 or rows[0]["gpu_fer"] > 0.001 or not counts["circulant_fer_cuda"]:
+            raise SystemExit("phase 25: fer_curve lost frames at 0.01 or launched no K1")
+
+        t0 = time.perf_counter()
+        art = quiet(lambda: hqc192_diagnostics.main(["--phases", "A", "--garbage-samples", "4096", "--search-samples",
+                                                     "8192", "--out", f"{tmp}/a.json"]))
+        a = art["A_structure"]
+        print(f"phase 25 hqc192_diagnostics --phases A (HQC-192, 4096 + 8192 plaintexts): extra expansions "
+              f"{a['garbage_distribution']}, P(extra < 3) {a['fail_ceiling_P_extra_lt_3']:.4f}, largest extra "
+              f"{a['max_extra_observed']}, 4-expansion hits {a['four_expansion_hits']} "
+              f"({time.perf_counter() - t0:.2f} s)")
+        if a["four_expansion_hits"] or a["max_extra_observed"] > 3:
+            raise SystemExit("phase 25: a 4-expansion plaintext, against the sampler's Binomial(3, p) extras")
+        argv = ["--phases", "BC", "--param-set", "128", "--profile-measurements", "256", "--chunks", "64", "128",
+                "--measure-levels", "16", "64", "--trials", "4"]
+        for label, clock in (("the host's counter", nullcontext()), ("the modelled counter", ModelledClock(Hqc128))):
+            t0 = time.perf_counter()
+            with clock:
+                art = quiet(lambda: hqc192_diagnostics.main(argv + ["--out", f"{tmp}/bc.json"]))
+            print(f"phase 25 hqc192_diagnostics --phases BC at HQC-128, small counts, over {label} (ungated): "
+                  f"expansion cost {art.get('per_expansion_cost_cycles')} cycles; ladder increments "
+                  f"{[r['per_expansion_increments'] for r in art.get('B_class_ladder', [])]}; decision accuracy "
+                  f"{[(r['measure'], r['acc_fail'], r['acc_success']) for r in art.get('C_decision_accuracy', [])]} "
+                  f"({time.perf_counter() - t0:.2f} s)")
+    print(f"phase 25 launches through the scripts: {total}")
     return total
 
 

@@ -30,21 +30,30 @@ reference; module paths mirror it.  Ported:
                 decoder-name registry
 - ``models``:   ``models.hqc``, the HQC key-recovery attack (the native HQC
                 binding, the fast, native and measured-timing oracles, three
-                decode backends, batched multi-instance attacks, checkpoints,
+                decode backends, batched multi-instance attacks (their rounds
+                also split over ranks), checkpoints,
                 ``hqc_eval_oracle``), and ``models.kyber``, the Kyber-768
                 key-recovery pipeline (fixed-pattern and adaptive)
-- ``parallel``: the single-device binary frame-error-rate step and loop
+- ``parallel``: the binary frame-error-rate step and loop on one device,
+                and several ranks on ``torch.distributed`` (NCCL on cards,
+                gloo on the CPU): ``init_distributed``, the ``(data, model)``
+                mesh, the sharded FER step, masked decode, q-ary FER step
+                and special decode
 - ``sim``:      binary and q-ary frame-error-rate simulation
 - ``cli``:      ``python -m sca_ldpc_tpu_torch.cli.main <command>``, the JAX
                 CLI's 13 commands and flags plus ``--device``
 - ``viz``:      the attack statistics' plots (pandas, matplotlib, seaborn)
-- ``scripts``:  ``attack_phase_profile``, ``sweep_hqc``, ``profile_trace``
-                and the timing-attack scripts, each run as
+- ``scripts``:  ``attack_phase_profile``, ``sweep_hqc``, ``profile_trace``,
+                the timing-attack scripts, ``fer_curve``, ``multihost_fer``,
+                the Kyber curves and cross-validation and
+                ``hqc192_diagnostics``, each run as
                 ``python -m sca_ldpc_tpu_torch.scripts.<name>``
 - ``tools``:    the card's measurement harnesses (kernel forms, attack cells)
 
-Not ported yet: running across several devices (``parallel/{mesh,
-distributed}``, the sharded executors) and the Kyber and HQC-192 scripts.
+Not ported, by design: TPU and XLA compile options (the Pallas kernels'
+tiling switches, ``utils/compilation_cache.py``, ``scripts/lean_sweep.py``),
+the JAX package's entry module ``__graft_entry__.py`` and its benchmark
+``bench.py``.
 """
 
 __version__ = "0.1.0"

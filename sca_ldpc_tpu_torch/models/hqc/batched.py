@@ -25,9 +25,11 @@ block count (no compile-shape buckets: inert padding leaves the decisions
 unchanged), a ``"circulant"`` round is ONE launch of K8 with per-instance
 shifts ``[I, P, W]`` (each instance keeps its own early exit), and
 checkpoints are named by instance index and seed, so equal seeds do not
-share a file.
+share a file.  :class:`ShardedCirculantDecodeExecutor` splits each round's
+instances over the ranks of a ``torch.distributed`` mesh.
 """
 
+import hashlib
 import logging
 import os
 import threading
@@ -161,6 +163,64 @@ class BatchedCirculantDecodeExecutor(BatchedDecodeExecutor):
         n = e_c.shape[1]
         flat = torch.cat([e_c, e_i.reshape(len(builds), -1)], dim=1).cpu().numpy()  # one copy for the round
         for i, (tid, dec, tr, checks, y, *_rest) in enumerate(builds):
+            self._results[tid] = dec.stats_from_masked(tr, flat[i, :n], flat[i, n:].reshape(p_pad, n), checks, y)
+
+
+class ShardedCirculantDecodeExecutor(BatchedCirculantDecodeExecutor):
+    """Barrier batcher whose rounds split over the ranks of a mesh
+    (``parallel.make_mesh``): the batched attack's masked decodes through
+    :func:`~sca_ldpc_tpu_torch.parallel.attack.make_sharded_masked_decode`,
+    each rank decoding its block of the round's instances in one K8 launch on
+    the mesh's device, the decisions gathered to every rank.
+
+    SPMD, as a several-process JAX program is: every rank runs the same
+    :func:`simulate_hqc_attacks_batched` on the same seeds and keys, so every
+    rank builds the same rounds.  A round's instances are put in the order of
+    their arrays' digests (the order threads reach the barrier differs
+    between ranks), padded to a multiple of the mesh's size by repeating the
+    last one, and the ranks compare the round's shape and digest before the
+    launch: a rank whose round differs raises on every rank.
+
+    ``crosscheck=True`` also decodes every instance alone on this rank
+    (``_multi_circulant_bp``, what :class:`BatchedCirculantDecodeExecutor`
+    runs for one instance) and raises unless the sharded decisions equal it.
+    """
+
+    def __init__(self, num_instances, mesh, max_iter=100, method="product_sum", crosscheck=False):
+        super().__init__(num_instances, max_iter, method, mesh.device)
+        from ...parallel.attack import make_sharded_masked_decode
+
+        self.mesh = mesh
+        self.crosscheck = crosscheck
+        self._sharded_decode = make_sharded_masked_decode(mesh, max_iter=max_iter, method=method)
+
+    def _execute(self, items):
+        p_pad = max(len(dec._block_shifts) for _tid, (dec, _t, _c, _y) in items)
+        builds = []
+        for tid, (dec, tr, checks, y) in items:
+            arrays = dec.build_masked_arrays(checks, y, p_pad=p_pad)
+            digest = hashlib.sha256(b"".join(np.ascontiguousarray(a).tobytes() for a in arrays)).digest()
+            builds.append((digest, tid, dec, tr, checks, y, *arrays))
+        builds.sort(key=lambda b: b[0])
+        pad = (-len(builds)) % self.mesh.size
+        logger.info(f"Sharded masked-circulant decode: {len(builds)} instances (+{pad} pad) over "
+                    f"{self.mesh.size} ranks, P_pad={p_pad}")
+        round_digest = hashlib.sha256(b"".join(b[0] for b in builds)).digest()
+        self.mesh.check_same([len(builds), p_pad, int.from_bytes(round_digest[:7], "little")], "the round")
+        stack = [np.stack([b[k] for b in builds] + [builds[-1][k]] * pad) for k in (6, 7, 8, 9)]
+        e_c, e_i, _conv = self._sharded_decode(*stack)
+        n = e_c.shape[1]
+        flat = torch.cat([e_c, e_i.reshape(len(e_c), -1)], dim=1)[: len(builds)].cpu().numpy()
+        if self.crosscheck:
+            for i, b in enumerate(builds):
+                one = [torch.as_tensor(a[None], device=self.device) for a in b[6:9]]
+                rc, ri, _cv, _it = _multi_circulant_bp(*one, torch.as_tensor(b[9], device=self.device),
+                                                       self.max_iter, self.method)
+                if not (np.array_equal(rc[0].cpu().numpy(), flat[i, :n])
+                        and np.array_equal(ri[0].reshape(-1).cpu().numpy(), flat[i, n:])):
+                    raise RuntimeError(f"the sharded decode differs from the single-device decode for instance {i} "
+                                       "of the round")
+        for i, (_digest, tid, dec, tr, checks, y, *_rest) in enumerate(builds):
             self._results[tid] = dec.stats_from_masked(tr, flat[i, :n], flat[i, n:].reshape(p_pad, n), checks, y)
 
 

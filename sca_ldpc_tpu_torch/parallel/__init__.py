@@ -1,6 +1,19 @@
-from .fer import fer_simulation, make_fer_step
+from .attack import make_sharded_masked_decode
+from .distributed import init_distributed
+from .fer import fer_simulation, make_fer_step, make_sharded_fer_step, sharded_fer_simulation
+from .mesh import Mesh, make_mesh
+from .qary import make_sharded_qary_fer_step, make_sharded_special_decode, sharded_qary_fer_simulation
 
 __all__ = [
+    "Mesh",
     "fer_simulation",
+    "init_distributed",
     "make_fer_step",
+    "make_mesh",
+    "make_sharded_fer_step",
+    "make_sharded_masked_decode",
+    "make_sharded_qary_fer_step",
+    "make_sharded_special_decode",
+    "sharded_fer_simulation",
+    "sharded_qary_fer_simulation",
 ]
