@@ -1,0 +1,2 @@
+"""The benchmark's plain reference: NumPy and plain PyTorch, importing nothing
+of the program under test."""
