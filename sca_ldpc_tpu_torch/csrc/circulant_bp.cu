@@ -421,14 +421,16 @@ extern "C" int circulant_bp_decode(const float* prior_c, const float* prior_i, u
 // FER step (replaces circulant_fer_pallas): errors [B, 2N] 0/1 in; the
 // syndrome (scratch syn [B, N]) and the identity decisions (scratch e_i
 // [B, N]) are formed on the card; out: ok [B] (decisions equal the errors)
-// and conv [B].  Launch and scratch as for circulant_bp_decode.
+// and conv [B], and iters [B] (may be null: each frame's iterations, as
+// circulant_bp_decode gives them).  Launch and scratch as for
+// circulant_bp_decode.
 extern "C" int circulant_fer_step(const uint8_t* errors, float prior, const int* shifts, int w, int n, int ld,
                                   int batch, int max_iter, int method, int threads, int smem_bytes, float* c2v,
                                   float* tot, uint8_t* syn, uint8_t* e_i, uint8_t* ok_out, uint8_t* conv_out,
-                                  void* stream) {
+                                  int* iters_out, void* stream) {
   if (errors == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   const Args a{nullptr, nullptr, prior, errors, syn, shifts, w, n, ld, max_iter, 1, c2v, tot,
-               nullptr, e_i, n, conv_out, ok_out, nullptr};
+               nullptr, e_i, n, conv_out, ok_out, iters_out};
   return launch(a, method, batch, threads, smem_bytes, stream);
 }
 

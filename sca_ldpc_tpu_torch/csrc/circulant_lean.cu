@@ -495,14 +495,15 @@ extern "C" int circulant_bp_lean_decode(const float* prior_c, const float* prior
 
 // FER step (replaces circulant_fer_pallas_lean): errors [B, 2N] 0/1 in; the
 // syndrome (scratch syn [B, N]) and the decisions (scratch e [B, 2N]) are
-// formed on the card; out: ok [B] (decisions equal the errors) and conv [B].
+// formed on the card; out: ok [B] (decisions equal the errors), conv [B] and
+// iters [B] (may be null).
 extern "C" int circulant_fer_lean_step(const uint8_t* errors, float prior, const int* shifts, int w, int n,
                                        int ld, int batch, int max_iter, int elems, int smem_bytes, void* v2c,
                                        float* acc, uint8_t* syn, uint8_t* e_scratch, uint8_t* ok_out,
-                                       uint8_t* conv_out, void* stream) {
+                                       uint8_t* conv_out, int* iters_out, void* stream) {
   if (errors == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   return dispatch<true>(elems, smem_bytes, batch, stream, nullptr, nullptr, prior, errors, syn, shifts, w, n, ld,
-                        max_iter, v2c, acc, e_scratch, conv_out, ok_out, nullptr);
+                        max_iter, v2c, acc, e_scratch, conv_out, ok_out, iters_out);
 }
 
 // tab_out, direct_out [65536] f32, indexed by a bf16's bits: the table's

@@ -31,6 +31,14 @@ Design deviations from the reference (behavior-preserving unless noted):
   (hqc.py:1005-1008 assigns ``((a, b),)``); we implement the evident intent
   ``(a, b)``.
 
+Spans and counters (``utils/spans.py``, recorded only while something reads
+them): ``attack.oracle`` (:meth:`HqcOracle._raw`,
+:meth:`HqcOracle.query_candidates`), ``attack.flip`` (the ciphertext
+mutations), ``attack.decode`` (each periodic decode, the time
+``tracking.decode_seconds`` adds) and inside it ``attack.decode.build`` (the
+decode's arrays) and ``attack.decode.stats`` (its statistics); counters
+``attack.decodes``, ``attack.raw_queries`` and ``attack.flips``.
+
 Unlike the JAX package, the general decode pads no check rows (XLA compiled
 once per 256-row bucket; PyTorch has no per-shape compile, and inert rows
 leave the decisions unchanged), and a checkpoint also records ``error_rate``
@@ -40,7 +48,6 @@ and ``crosscheck_every``, so a resume under another noise level is refused.
 import logging
 import os
 import pickle
-import time
 from math import isnan, prod
 
 import numpy as np
@@ -50,7 +57,7 @@ from ...codes.layout import CodeLayout
 from ...codes.make_code import random_circulant_first_row
 from ...ops.binary_bp import BinaryBPDecoder
 from ...ops.circulant_bp import _multi_circulant_bp
-from ...utils import make_random_state
+from ...utils import make_random_state, spans
 from ...utils.device import resolve_device
 from .model import Hqc128, Hqc192, Hqc256
 from .tracking import (
@@ -248,12 +255,16 @@ class HqcOracle:
 
     # -- ciphertext mutations ------------------------------------------------
 
+    @spans.traced("attack.flip")
     def flip_block(self, block):
+        spans.count("attack.flips", 1)
         self.ct = toggle_outer_block(self.ct, block, self.params.N, self.params.N2)
         if self.state is not None:
             self.state.toggle_block(block)
 
+    @spans.traced("attack.flip")
     def flip_bit(self, block, bit):
+        spans.count("attack.flips", 1)
         self.ct = flip_single_bit(self.ct, block, bit, self.params.N, self.params.N2)
         if self.state is not None:
             self.state.toggle_bits([block * self.params.N2 + bit])
@@ -264,9 +275,11 @@ class HqcOracle:
         pt_prime, *_ = self.params.HQC.decode_intermediates(ct, self.priv)
         return self.pt == bytes(pt_prime)
 
+    @spans.traced("attack.oracle")
     def _raw(self, flipped_vbit=None):
         """True decoding result for the current ct, optionally with one
         additional (hypothetical) v-bit flipped."""
+        spans.count("attack.raw_queries", 1)
         self._raw_count += 1
         if self.state is not None:
             if flipped_vbit is None:
@@ -372,6 +385,7 @@ class HqcOracle:
         raw = self._raw(vbit)
         return self._amplify(raw, (require_false, require_true), result_meta, debug, vbit=vbit)
 
+    @spans.traced("attack.oracle")
     def query_candidates(self, block, bits, require_false, require_true, metas):
         """Batch-probe single-bit flips of ``bits`` within ``block``: raw
         answers come from one vectorized spectrum update (fast backend);
@@ -635,6 +649,7 @@ class CheckDecoder:
         counts = np.bincount(np.concatenate(self.row_supports), minlength=self.params.N)
         return max(1, int(counts.max()))
 
+    @spans.traced("attack.decode.build")
     def build_arrays(self, checks, y_sparse, r_pad=None, dv=None):
         """(layout, channel, msg) for the current check set; ``r_pad`` pads
         the check count with inert identity-only rows and ``dv`` fixes the
@@ -668,6 +683,7 @@ class CheckDecoder:
         msg[N : N + R] = [c for (c, _p) in checks]
         return layout, channel, msg
 
+    @spans.traced("attack.decode.stats")
     def stats_from_decoded(self, tracking, decoded, checks, y_sparse):
         """Statistics identical to hqc.py:709-758; returns success."""
         params = self.params
@@ -789,6 +805,7 @@ class MaskedCirculantCheckDecoder(CheckDecoder):
             self._block_shifts.append(key)
         self._rows.append((self._blocks[key], int(bit_n)))
 
+    @spans.traced("attack.decode.build")
     def build_masked_arrays(self, checks, y_sparse, p_pad=None):
         """(prior_c [N], prior_i [P,N], syn [P,N], shifts [P,W]) for the
         current check set.  ``p_pad`` pads with all-inert extra blocks so
@@ -818,6 +835,7 @@ class MaskedCirculantCheckDecoder(CheckDecoder):
         prior_c = np.full(N, np.log((1.0 - prob_one) / prob_one), np.float32)
         return prior_c, prior_i, syn, shifts
 
+    @spans.traced("attack.decode.stats")
     def stats_from_masked(self, tracking, e_c, e_i, checks, y_sparse):
         """Reassemble the [y | per-check indicator] vector stats expect.
 
@@ -883,9 +901,10 @@ def add_checks(params, tracking, decoder: CheckDecoder, shifts, check_value, bit
             decaps_note = f" ({timing.num_decaps} timed decapsulations)" if timing is not None else ""
             logger.info(f"{tracking.num_oracle_calls} oracle calls so far{decaps_note}, {unsatisfied} unsatisfied "
                         f"checks out of {R}.")
-            t0 = time.perf_counter()
-            ok = decoder.decode(tracking, checks, y_sparse, executor=executor)
-            tracking.decode_seconds += time.perf_counter() - t0
+            spans.count("attack.decodes", 1)
+            with spans.span("attack.decode", clock=True) as decode:
+                ok = decoder.decode(tracking, checks, y_sparse, executor=executor)
+            tracking.decode_seconds += decode.seconds
             if ok:
                 logger.info("Successfully decoded y")
                 return True

@@ -143,7 +143,7 @@ def _lib():
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.circulant_bp_decode.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, i, p, p, p, p, p, p]
     lib.circulant_bp_decode.restype = i
-    lib.circulant_fer_step.argtypes = [p, f, p, i, i, i, i, i, i, i, i, p, p, p, p, p, p, p]
+    lib.circulant_fer_step.argtypes = [p, f, p, i, i, i, i, i, i, i, i, p, p, p, p, p, p, p, p]
     lib.circulant_fer_step.restype = i
     lib.circulant_bp_occupancy.argtypes = [i, i, i, i, i]
     lib.circulant_bp_occupancy.restype = i
@@ -212,7 +212,7 @@ def _lean_lib():
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.circulant_bp_lean_decode.argtypes = [p, p, p, p, i, i, i, i, i, i, i, p, p, p, p, p, p]
     lib.circulant_bp_lean_decode.restype = i
-    lib.circulant_fer_lean_step.argtypes = [p, f, p, i, i, i, i, i, i, i, p, p, p, p, p, p, p]
+    lib.circulant_fer_lean_step.argtypes = [p, f, p, i, i, i, i, i, i, i, p, p, p, p, p, p, p, p]
     lib.circulant_fer_lean_step.restype = i
     lib.circulant_lean_phi_table.argtypes = [p, p, p]
     lib.circulant_lean_phi_table.restype = i
@@ -306,7 +306,7 @@ def _check_decode(prior_c, prior_i, syndrome):
     return device, b, n
 
 
-def _check_fer(errors, error_rate):
+def _check_fer(errors, error_rate, iters_out):
     """Checks the FER-step inputs; returns (device, B, N)."""
     device = errors.device
     if errors.ndim != 2 or errors.shape[1] % 2:
@@ -315,6 +315,8 @@ def _check_fer(errors, error_rate):
     _check(errors, "errors", (b, n2), _INT_DTYPES, device)
     if not 0.0 < error_rate < 1.0:
         raise ValueError(f"error_rate {error_rate} outside (0, 1)")
+    if iters_out is not None:
+        _check(iters_out, "iters_out", (b,), (torch.int32,), device)
     return device, b, n2 // 2
 
 
@@ -381,21 +383,25 @@ def circulant_bp_cuda(prior_c, prior_i, syndrome, shifts, max_iter, method="min_
 circulant_bp_cuda.launches = 0
 
 
-def circulant_fer_plain(errors, shifts, error_rate, max_iter, method="product_sum"):
+def circulant_fer_plain(errors, shifts, error_rate, max_iter, method="product_sum", iters_out=None):
     """Plain PyTorch version of :func:`circulant_fer_cuda`, on any device."""
     syn, pc = _syndrome_and_prior(errors, shifts, error_rate)
-    e_hat, conv, _ = _circulant_bp_frames(pc, pc, syn, tuple(shifts), True, int(max_iter), method)
+    e_hat, conv, iters = _circulant_bp_frames(pc, pc, syn, tuple(shifts), True, int(max_iter), method)
+    if iters_out is not None:
+        iters_out.copy_(iters)
     return torch.all(e_hat == errors.to(torch.int32), dim=-1), conv
 
 
-def circulant_fer_cuda(errors, shifts, error_rate, max_iter, method="product_sum"):
+def circulant_fer_cuda(errors, shifts, error_rate, max_iter, method="product_sum", iters_out=None):
     """FER step core: [B, 2N] 0/1 error bits (integer or bool) in ->
     ([B] success, [B] converged) bool flags, decoding with the uniform prior
-    ``log((1 - error_rate) / error_rate)``."""
-    device, b, n = _check_fer(errors, error_rate)
+    ``log((1 - error_rate) / error_rate)``.  ``iters_out``, a [B] int32
+    tensor on the errors' device, if given receives each frame's iterations
+    (as :func:`circulant_bp_cuda`'s ``iters``)."""
+    device, b, n = _check_fer(errors, error_rate, iters_out)
     shifts = _check_args(shifts, n, max_iter, method)
     if device.type == "cpu":
-        return circulant_fer_plain(errors, shifts, error_rate, max_iter, method)
+        return circulant_fer_plain(errors, shifts, error_rate, max_iter, method, iters_out)
 
     stream = _cuda_stream(device)
     w = len(shifts)
@@ -412,7 +418,8 @@ def circulant_fer_cuda(errors, shifts, error_rate, max_iter, method="product_sum
             rc = _lib().circulant_fer_step(
                 err.data_ptr(), prior, k.data_ptr(), w, n, cfg.ld, b, int(max_iter), _METHODS[method],
                 cfg.threads, cfg.smem_bytes, c2v.data_ptr(), None if tot is None else tot.data_ptr(),
-                syn.data_ptr(), e_i.data_ptr(), ok.data_ptr(), conv.data_ptr(), stream,
+                syn.data_ptr(), e_i.data_ptr(), ok.data_ptr(), conv.data_ptr(),
+                None if iters_out is None else iters_out.data_ptr(), stream,
             )
             if rc != 0:
                 raise RuntimeError(f"circulant_fer_step launch failed: CUDA error {rc}")
@@ -531,20 +538,22 @@ def circulant_bp_lean_cuda(prior_c, prior_i, syndrome, shifts, max_iter, method=
 circulant_bp_lean_cuda.launches = 0
 
 
-def circulant_fer_lean_plain(errors, shifts, error_rate, max_iter):
+def circulant_fer_lean_plain(errors, shifts, error_rate, max_iter, iters_out=None):
     """Plain PyTorch version of :func:`circulant_fer_lean_cuda`, on any device."""
     syn, pc = _syndrome_and_prior(errors, shifts, error_rate)
-    e_hat, conv, _ = circulant_bp_lean_plain(pc, pc, syn, shifts, max_iter)
+    e_hat, conv, iters = circulant_bp_lean_plain(pc, pc, syn, shifts, max_iter)
+    if iters_out is not None:
+        iters_out.copy_(iters)
     return torch.all(e_hat == errors.to(torch.int32), dim=-1), conv
 
 
-def circulant_fer_lean_cuda(errors, shifts, error_rate, max_iter, method="product_sum"):
+def circulant_fer_lean_cuda(errors, shifts, error_rate, max_iter, method="product_sum", iters_out=None):
     """Lean FER step (K4): the inputs and outputs of
     :func:`circulant_fer_cuda` over the lean decode, product-sum only."""
-    device, b, n = _check_fer(errors, error_rate)
+    device, b, n = _check_fer(errors, error_rate, iters_out)
     shifts = _check_lean_args(shifts, n, max_iter, method)
     if device.type == "cpu":
-        return circulant_fer_lean_plain(errors, shifts, error_rate, max_iter)
+        return circulant_fer_lean_plain(errors, shifts, error_rate, max_iter, iters_out)
 
     stream = _cuda_stream(device)
     w = len(shifts)
@@ -561,7 +570,7 @@ def circulant_fer_lean_cuda(errors, shifts, error_rate, max_iter, method="produc
             rc = _lean_lib().circulant_fer_lean_step(
                 err.data_ptr(), prior, k.data_ptr(), w, n, ld, b, int(max_iter), cfg.elems, cfg.smem_bytes,
                 *(x.data_ptr() for x in state), syn.data_ptr(), e_hat.data_ptr(), ok.data_ptr(), conv.data_ptr(),
-                stream,
+                None if iters_out is None else iters_out.data_ptr(), stream,
             )
             if rc != 0:
                 raise RuntimeError(f"circulant_fer_lean_step launch failed: CUDA error {rc}")

@@ -22,6 +22,17 @@ decode runs (the JAX package's name in brackets):
 On the CPU each kernel backend runs its kernel's plain version.  No
 host->device transfer scales with the batch.
 
+Spans and counters (``utils/spans.py``; recorded only while something reads
+them): ``fer.simulation`` around one :func:`fer_simulation` or
+:func:`sharded_fer_simulation` call, inside it ``fer.sample`` (the uniforms,
+``< p`` and the cast), ``fer.decode`` (the decode: for the kernel backends the
+wrapper's shifts, scratch and launch), ``fer.reduce`` (the counts' sums, and
+their exchange over the ranks) and ``fer.count`` (the count on the host, which
+waits for the device).  The kernel backends count ``fer.frames`` and
+``fer.frame_iterations``: while recording they hand the kernel a [B] buffer
+for each frame's iterations and count its sum on the device; otherwise the
+launch is the one without it.  ``"decode"`` counts nothing.
+
 The sharded step splits the batch over the mesh's ranks.  Every rank draws
 the whole ``[batch, n_vars]`` uniform tensor from its generator (seeded alike
 on every rank) and keeps its own rows, so the frames do not depend on the
@@ -38,6 +49,7 @@ from ..ops.binary_bp import _bp_decode_syndrome
 from ..ops.circulant_bp import CirculantBPDecoder
 from ..ops.kernels.circulant_cuda import circulant_fer_cuda, circulant_fer_lean_cuda
 from ..sim.fer import _syndromes
+from ..utils import spans
 
 _KERNELS = {"fused": circulant_fer_cuda, "lean": circulant_fer_lean_cuda}
 BACKENDS = (*_KERNELS, "decode")
@@ -98,10 +110,14 @@ def make_fer_step(layout, channel_probs, device, max_iter=50, method="product_su
         p = torch.as_tensor(probs, device=device)
         decode = _decoder(layout, p, device, max_iter, method)
 
-        def run(u):
-            errors = (u < p).to(torch.int32)
-            e_hat, conv, it = decode(errors)
-            return torch.all(e_hat == errors, dim=-1).sum(), conv.sum(), it
+        def sample(u):
+            return (u < p).to(torch.int32)
+
+        def run(errors):
+            with spans.span("fer.decode"):
+                e_hat, conv, it = decode(errors)
+            with spans.span("fer.reduce"):
+                return torch.all(e_hat == errors, dim=-1).sum(), conv.sum(), it
     else:
         if not isinstance(layout, CirculantLayout) or not layout.with_identity:
             raise ValueError(f"FER backend {backend!r} requires a [circulant | I] layout")
@@ -110,13 +126,26 @@ def make_fer_step(layout, channel_probs, device, max_iter=50, method="product_su
             raise ValueError(f"FER backend {backend!r} supports one uniform error rate over all variables")
         fer_kernel = _KERNELS[backend]
 
-        def run(u):
-            ok, conv = fer_kernel((u < err).to(torch.uint8), layout.shifts, err, max_iter, method)
-            return ok.sum(), conv.sum(), torch.full((), -1, dtype=torch.int32, device=device)
+        def sample(u):
+            return (u < err).to(torch.uint8)
+
+        def run(errors):
+            with spans.span("fer.decode"):
+                if spans.recording():
+                    iters = torch.empty((errors.shape[0],), dtype=torch.int32, device=device)
+                    ok, conv = fer_kernel(errors, layout.shifts, err, max_iter, method, iters_out=iters)
+                    spans.count("fer.frames", errors.shape[0])
+                    spans.count("fer.frame_iterations", iters.sum())
+                else:
+                    ok, conv = fer_kernel(errors, layout.shifts, err, max_iter, method)
+            with spans.span("fer.reduce"):
+                return ok.sum(), conv.sum(), torch.full((), -1, dtype=torch.int32, device=device)
 
     def step(generator, batch, rows=None):
-        u = torch.rand((batch, n_vars), generator=generator, device=device)
-        return run(u if rows is None else u[rows])
+        with spans.span("fer.sample"):
+            u = torch.rand((batch, n_vars), generator=generator, device=device)
+            errors = sample(u if rows is None else u[rows])
+        return run(errors)
 
     return step
 
@@ -125,18 +154,20 @@ def fer_simulation(layout, channel_probs, runs, generator, device, batch=None, m
                    method="product_sum", backend="fused"):
     """Run ``runs`` frames in batches of at most ``batch``; returns
     (successes, frames)."""
-    if batch is None:
-        batch = min(max(runs, 1), 256)
-    batch = max(1, int(batch))
-    step = make_fer_step(layout, channel_probs, device, max_iter, method, backend)
-    successes = 0
-    done = 0
-    while done < runs:
-        cur = min(batch, runs - done)
-        ok, _conv, _iters = step(generator, cur)
-        successes += int(ok)
-        done += cur
-    return successes, done
+    with spans.span("fer.simulation"):
+        if batch is None:
+            batch = min(max(runs, 1), 256)
+        batch = max(1, int(batch))
+        step = make_fer_step(layout, channel_probs, device, max_iter, method, backend)
+        successes = 0
+        done = 0
+        while done < runs:
+            cur = min(batch, runs - done)
+            ok, _conv, _iters = step(generator, cur)
+            with spans.span("fer.count"):
+                successes += int(ok)
+            done += cur
+        return successes, done
 
 
 def _granularity(backend, ranks):
@@ -159,8 +190,9 @@ def make_sharded_fer_step(layout, channel_probs, mesh, max_iter=50, method="prod
         if batch % gran:
             raise ValueError(f"batch {batch} is not a multiple of {gran} (backend {backend!r}, {mesh.size} ranks)")
         ok, conv, it = local(generator, batch, mesh.rows(batch))
-        counts = mesh.all_reduce(torch.stack([ok, conv]), "sum")
-        return counts[0], counts[1], mesh.all_reduce(it, "max")
+        with spans.span("fer.reduce"):
+            counts = mesh.all_reduce(torch.stack([ok, conv]), "sum")
+            return counts[0], counts[1], mesh.all_reduce(it, "max")
 
     return step
 
@@ -173,17 +205,19 @@ def sharded_fer_simulation(layout, channel_probs, runs, generator, mesh, batch=N
     multiple of the granule ``g`` (at least one), so ``frames`` may exceed
     ``runs``.  ``generator``: on the mesh's device, seeded alike on every
     rank."""
-    gran = _granularity(backend, mesh.size)
-    if batch is None:
-        batch = min(max(runs, gran), 256 * mesh.size)
-    batch = max(gran, (batch // gran) * gran)
-    step = make_sharded_fer_step(layout, channel_probs, mesh, max_iter, method, backend)
-    successes = 0
-    done = 0
-    while done < runs:
-        cur = min(batch, max(gran, runs - done))
-        cur = max(gran, (cur // gran) * gran)
-        ok, _conv, _it = step(generator, cur)
-        successes += int(ok)
-        done += cur
-    return successes, done
+    with spans.span("fer.simulation"):
+        gran = _granularity(backend, mesh.size)
+        if batch is None:
+            batch = min(max(runs, gran), 256 * mesh.size)
+        batch = max(gran, (batch // gran) * gran)
+        step = make_sharded_fer_step(layout, channel_probs, mesh, max_iter, method, backend)
+        successes = 0
+        done = 0
+        while done < runs:
+            cur = min(batch, max(gran, runs - done))
+            cur = max(gran, (cur // gran) * gran)
+            ok, _conv, _it = step(generator, cur)
+            with spans.span("fer.count"):
+                successes += int(ok)
+            done += cur
+        return successes, done

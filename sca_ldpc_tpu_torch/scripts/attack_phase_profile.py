@@ -3,23 +3,24 @@
 
 Measures where the attack's wall time goes — periodic LDPC decodes vs
 raw oracle probes vs host control flow — for any parameter set / decode
-backend (the JAX package's ``scripts/attack_phase_profile.py``, on the
-port's classes, wrapped in place).
+backend (the JAX package's ``scripts/attack_phase_profile.py``), from the
+attack's own spans and counters (``utils/spans.py``), recorded for the run.
 
 Phases:
-- decode:  decoder.decode() wall (host array building + device call +
-           result fetch); inside it, the array building
-           (``build_masked_arrays`` / ``build_arrays``), the statistics
+- decode:  the ``attack.decode`` span, each periodic decode's wall (host
+           array building + device call + result fetch); inside it,
+           ``attack.decode.build`` (``build_masked_arrays`` /
+           ``build_arrays``), ``attack.decode.stats``
            (``stats_from_masked`` / ``stats_from_decoded``) and, for
            ``circulant`` on a CUDA device, K8's own device time (CUDA
            events around each launch); the rest of the decode is copies,
            launch overhead and host syncs
-- oracle:  HqcOracle._raw / HqcOracle.query_candidates (the idealized
-           fast-oracle spectrum updates, host numpy)
+- oracle:  ``attack.oracle``, HqcOracle._raw / HqcOracle.query_candidates
+           (the idealized fast-oracle spectrum updates, host numpy)
 - other:   everything else (search control flow, bookkeeping); inside it,
-           the ciphertext mutations ``HqcOracle.flip_block`` /
-           ``flip_bit`` (under the fast backend each updates the
-           Walsh-spectrum state) as ``oracle_flip_seconds``
+           ``attack.flip``, the ciphertext mutations
+           ``HqcOracle.flip_block`` / ``flip_bit`` (under the fast backend
+           each updates the Walsh-spectrum state) as ``oracle_flip_seconds``
 
 The artifact keeps the JAX script's keys.  ``p_bucket`` is null: the port
 has no compile-shape buckets (``MaskedCirculantCheckDecoder.P_BUCKET`` is
@@ -43,71 +44,16 @@ import os
 import time
 
 
-class _Phases:
-    """Wall-time accumulators for methods wrapped in place; a method called
-    inside another of the same phase is counted once."""
-
-    def __init__(self):
-        self.seconds, self.calls, self._depth, self._undo = {}, {}, {}, []
-
-    def wrap(self, cls, name, phase, count=None):
-        orig = cls.__dict__[name]
-        self.seconds.setdefault(phase, 0.0)
-        self._depth.setdefault(phase, 0)
-        if count:
-            self.calls.setdefault(count, 0)
-
-        def timed(*a, **k):
-            if count:
-                self.calls[count] += 1
-            if self._depth[phase]:
-                return orig(*a, **k)
-            self._depth[phase] += 1
-            t0 = time.perf_counter()
-            try:
-                return orig(*a, **k)
-            finally:
-                self.seconds[phase] += time.perf_counter() - t0
-                self._depth[phase] -= 1
-
-        setattr(cls, name, timed)
-        self._undo.append((cls, name, orig))
-
-    def restore(self):
-        for cls, name, orig in reversed(self._undo):
-            setattr(cls, name, orig)
-        self._undo.clear()
-
-
 def profile(args):
-    """Run the attack with the phases wrapped; returns the artifact."""
+    """Run the attack with its spans recorded; returns the artifact."""
     import torch
 
     import sca_ldpc_tpu_torch.models.hqc.attack as atk
     from sca_ldpc_tpu_torch.ops.kernels import circulant_cuda
-    from sca_ldpc_tpu_torch.utils import make_random_state
+    from sca_ldpc_tpu_torch.utils import make_random_state, spans
     from sca_ldpc_tpu_torch.utils.device import resolve_device
 
     device = resolve_device(args.device)
-    decoder_cls = {
-        "circulant": atk.MaskedCirculantCheckDecoder,
-        "padded": atk.PaddedCheckDecoder,
-        "general": atk.CheckDecoder,
-    }[args.decode_backend]
-    phases = _Phases()
-    phases.wrap(decoder_cls, "decode", "decode", count="n_decodes")
-    if args.decode_backend == "circulant":
-        phases.wrap(atk.MaskedCirculantCheckDecoder, "build_masked_arrays", "build")
-        phases.wrap(atk.MaskedCirculantCheckDecoder, "stats_from_masked", "stats")
-    else:
-        phases.wrap(atk.CheckDecoder, "build_arrays", "build")
-    phases.wrap(atk.CheckDecoder, "stats_from_decoded", "stats")
-    # the batched candidate probes (query_candidates) bypass _raw under the
-    # fast backend; under another backend a _raw inside them is counted once
-    phases.wrap(atk.HqcOracle, "_raw", "oracle", count="n_raw")
-    phases.wrap(atk.HqcOracle, "query_candidates", "oracle")
-    phases.wrap(atk.HqcOracle, "flip_block", "flip", count="n_flips")
-    phases.wrap(atk.HqcOracle, "flip_bit", "flip", count="n_flips")
     timing = contextlib.nullcontext()
     if device.type == "cuda" and args.decode_backend == "circulant":
         timing = circulant_cuda.timed_multi_decodes()
@@ -117,9 +63,10 @@ def profile(args):
         import cProfile
 
         profiler = cProfile.Profile()
+    spans.reset()
     t0 = time.perf_counter()
     try:
-        with timing as timed:
+        with spans.collect(), timing as timed:
             if profiler:
                 profiler.enable()
             ok, tracking = atk.simulate_hqc_idealized_oracle(
@@ -139,9 +86,13 @@ def profile(args):
         if profiler:
             profiler.disable()
         wall = time.perf_counter() - t0
-        phases.restore()
 
-    acc, calls = phases.seconds, phases.calls
+    # the batched candidate probes (query_candidates) bypass _raw under the
+    # fast backend; under another backend a _raw inside them is counted once
+    recorded = spans.snapshot()
+    acc = {phase: recorded["spans"].get(f"attack.{phase}", {"host_s": 0.0})["host_s"]
+           for phase in ("decode", "decode.build", "decode.stats", "oracle", "flip")}
+    calls = {n: recorded["counters"].get(f"attack.{n}", 0) for n in ("decodes", "raw_queries", "flips")}
     k8_s = timed.seconds() if timed else None
     artifact = {
         "experiment": "hqc_attack_phase_profile",
@@ -161,17 +112,17 @@ def profile(args):
         "other_seconds": wall - acc["decode"] - acc["oracle"],
         "decode_share": acc["decode"] / wall,
         "oracle_share": acc["oracle"] / wall,
-        "num_decodes": calls["n_decodes"],
-        "num_raw_queries": calls["n_raw"],
+        "num_decodes": calls["decodes"],
+        "num_raw_queries": calls["raw_queries"],
         "oracle_calls": tracking.num_oracle_calls,
-        "seconds_per_decode": acc["decode"] / max(calls["n_decodes"], 1),
-        "decode_build_seconds": acc["build"],
-        "decode_stats_seconds": acc["stats"],
+        "seconds_per_decode": acc["decode"] / max(calls["decodes"], 1),
+        "decode_build_seconds": acc["decode.build"],
+        "decode_stats_seconds": acc["decode.stats"],
         "k8_seconds": k8_s,
         "k8_launches": len(timed.events) if timed else None,
-        "decode_rest_seconds": acc["decode"] - acc["build"] - acc["stats"] - (k8_s or 0.0),
+        "decode_rest_seconds": acc["decode"] - acc["decode.build"] - acc["decode.stats"] - (k8_s or 0.0),
         "oracle_flip_seconds": acc["flip"],
-        "num_flips": calls["n_flips"],
+        "num_flips": calls["flips"],
     }
     if profiler:
         import pstats
