@@ -9,6 +9,16 @@ benchmark seeds with ``--seed``, their syndromes decoded by product-sum BP
 (``max_iter``, ``backend``), each frame compared with the bits sent.  Every
 step ends with its count of decoded frames on the host.
 
+The counts: ``attempted`` is the frames the window's steps asked the entry for
+(``batch`` a step: the cell's global batch over several ranks), and ``failed``
+those it gave no usable answer for: a step's missing frames when it says it ran
+fewer than ``batch``, and all of its frames when its frame count is not an
+integer in ``[0, batch]`` or its success count not one in ``[0, frames]``.  A
+frame decoded to other bits than were sent is an answer: the sweep's
+frame-error rate, which the reference gives on the same bits
+(``fer.frame_gap``).  That rate is printed for each error rate on standard
+error and kept on the run, and is not a count of failures.
+
 Correctness: the generator's state before each step is kept.  After the
 window, ``check_steps[r]`` steps at the ``r``-th rate, drawn from the seed, are
 drawn again from those states as the port's step draws them (uniforms on the
@@ -33,6 +43,7 @@ time) and ``limits`` {check: limit}.
 
 import datetime
 import gc
+import numbers
 import sys
 import time
 from types import SimpleNamespace
@@ -88,6 +99,24 @@ class _Group:
             self.dist.barrier(group=self.gloo)
 
 
+def _scalar(x):
+    """A count as the entry gave it, as a Python number."""
+    return x.item() if hasattr(x, "item") else x
+
+
+def _usable(value, high):
+    """Whether ``value`` is an integer in ``[0, high]``."""
+    return isinstance(value, numbers.Real) and float(value).is_integer() and 0 <= value <= high
+
+
+def _unanswered(ok, frames, batch):
+    """The frames of one step of ``batch`` that the entry gave no usable
+    answer for (it said it ran ``frames``, ``ok`` of them decoded)."""
+    if not _usable(frames, batch) or not _usable(ok, frames):
+        return batch
+    return batch - int(frames)
+
+
 def run(ctx):
     import torch
 
@@ -136,7 +165,7 @@ def run(ctx):
             states.append(gen.get_state())
             with tracer.span("bench.step"):
                 ok, frames = step(gen, len(counts))
-            counts.append((int(ok), int(frames)))
+            counts.append((_scalar(ok), _scalar(frames)))
             if group.any(time.perf_counter() - t0 >= ctx.seconds):
                 break
     window_s = time.perf_counter() - t0
@@ -185,19 +214,29 @@ def run(ctx):
 
     frames = sum(f for _ok, f in counts)
     successes = sum(ok for ok, _f in counts)
+    failed = sum(_unanswered(ok, f, batch) for ok, f in counts)
+    # the sweep's frame-error rate: the share of frames not decoded, over the steps whose counts are usable
+    tallies = [[(f - ok, f) for ok, f in counts[r::len(rates)] if _unanswered(ok, f, batch) < batch]
+               for r in range(len(rates))]
+    tallies = [(sum(u for u, _f in t), sum(f for _u, f in t)) for t in tallies]
+    undecoded = {rate: u / n for rate, (u, n) in zip(tr["error_rates"], tallies) if n}
+    undecoded_share = sum(u for u, _n in tallies) / max(sum(n for _u, n in tallies), 1)
     limits = tr["limits"]
     print(f"fer: {len(counts)} steps, {frames} frames, {successes} decoded in {window_s:.3f} s; reference on "
           f"{checked} frames in {ref_s:.3f} s, {later_iters / max(frames, 1):.4f} iterations a frame after the first",
           file=sys.stderr)
+    print(f"fer: frames not decoded (the sweep's FER, not failures): {100 * undecoded_share:.3f}%; by rate "
+          + ", ".join(f"{rate:g} {100 * share:.3f}%" for rate, share in undecoded.items())
+          + f"; {failed} of {len(counts) * batch} frames asked for not answered", file=sys.stderr)
     run_data = SimpleNamespace(
         kind="fer", window_s=summary["window_s"] if summary else window_s, traces=traces,
         frames=frames, steps=len(counts), world=ctx.world, config=ctx.config, traffic=tr,
-        later_iterations=later_iters,
+        later_iterations=later_iters, undecoded=undecoded, undecoded_share=undecoded_share,
     )
     return {
         "end_to_end": {"frames_per_s": frames / window_s, "setup_s": ctx.setup_s},
-        "attempted": frames,
-        "failed": frames - successes,
+        "attempted": len(counts) * batch,
+        "failed": failed,
         "memory_peak_bytes": peak,
         "checks": {"fer.count_gap": check(count_gap, limits["fer.count_gap"]),
                    "fer.frame_gap": check(frame_gap, limits["fer.frame_gap"])},

@@ -6,7 +6,10 @@ the timed path broken underneath, and sees ``correct`` come out false.  The
 FER cells' faults: an answer altered where it is produced, half of the batch
 left out with the count taken over the rest, a step that decodes nothing and
 reports its frames as they came in, and (over four gloo ranks) the exchange
-between the ranks left out.  The attack cell's: a decision altered where the
+between the ranks left out.  The FER cells' ``failed`` counts the frames a step
+gave no usable answer for, not the frames the code cannot decode: a sound run
+with frames not decoded reads 0, and an entry that runs short or returns a
+count that cannot be reads exactly its missing or unusable frames.  The attack cell's: a decision altered where the
 decode produces it, and a decode that returns its prior unchanged.
 """
 
@@ -26,13 +29,18 @@ TINY_FER = {"batch": 64, "error_rates": [0.03, 0.05], "reference_block": 32, "ch
             "check_frames": [64, 64]}
 
 
-def _run(workload, config=None, traffic=None, seconds=1.0, seed=2**31 + 12345):
+def _drive(workload, config=None, traffic=None, seconds=1.0, seed=2**31 + 12345):
+    """The driver's result and the result line of one run on the CPU."""
     cell = bench.Cell(workload)
     cell.config = {**cell.config, **(config or {})}
     cell.traffic = {**cell.traffic, **(traffic or {})}
     ctx = bench.Context(cell, seed, seconds, 0, 0, 1, torch.device("cpu"))
     result = bench.driver_module(cell.traffic).run(ctx)
-    return bench.result_line(cell, result, 0, "cpu")
+    return result, bench.result_line(cell, result, 0, "cpu")
+
+
+def _run(*args, **kwargs):
+    return _drive(*args, **kwargs)[1]
 
 
 def _fer_kernel(monkeypatch, fault):
@@ -56,9 +64,55 @@ def _fer_kernel(monkeypatch, fault):
 
 
 def test_fer_sound_run_is_correct():
-    line = _run("hqc128.fer", TINY, TINY_FER)
-    assert line["correct"] and 0 < line["failed"] < line["attempted"]
+    result, line = _drive("hqc128.fer", TINY, TINY_FER)
+    assert line["correct"] and line["failed"] == 0
+    assert line["attempted"] == result["run"].steps * TINY_FER["batch"] > 0
     assert list(line) == ["correct", "attempted", "failed", "metrics", "device", "checks"]
+
+
+def test_fer_undecoded_frames_are_not_failures(capsys):
+    result, line = _drive("hqc128.fer", TINY, TINY_FER)
+    undecoded = result["run"].undecoded
+    assert undecoded[0.05] > 0 and 0 < result["run"].undecoded_share < 1
+    assert line["correct"] and line["failed"] == 0
+    printed = [s for s in capsys.readouterr().err.splitlines() if s.startswith("fer: frames not decoded")]
+    assert printed and f"0.05 {100 * undecoded[0.05]:.3f}%" in printed[0]
+
+
+def _fer_entry(monkeypatch, fault):
+    """The entry answers every third call wrongly; returns the window's calls
+    as (asked, answered wrongly) and the frames each wrong answer leaves out."""
+    from sca_ldpc_tpu_torch import parallel
+
+    entry, calls = parallel.fer_simulation, []
+
+    def broken(layout, probs, runs, generator, device, **kwargs):
+        ok, frames = entry(layout, probs, runs, generator, device, **kwargs)
+        calls.append(len(calls) % 3 == 2)
+        if not calls[-1]:
+            return ok, frames
+        if fault == "short":  # the step says it ran 8 frames fewer than asked
+            return min(ok, frames - 8), frames - 8
+        if fault == "more_ok":  # more frames decoded than it ran
+            return frames + 1, frames
+        if fault == "fractional":
+            return ok + 0.5, frames
+        if fault == "negative":
+            return -1, frames
+        return ok, frames + 8  # more frames than asked
+
+    monkeypatch.setattr(parallel, "fer_simulation", broken)
+    return calls, 8 if fault == "short" else TINY_FER["batch"]
+
+
+@pytest.mark.parametrize("fault", ["short", "more_ok", "fractional", "negative", "more_frames"])
+def test_fer_unanswered_frames_are_failures(monkeypatch, fault):
+    calls, missing = _fer_entry(monkeypatch, fault)
+    result, line = _drive("hqc128.fer", TINY, TINY_FER)
+    window = calls[len(TINY_FER["error_rates"]):]  # after one warm-up step a rate
+    assert len(window) == result["run"].steps and sum(window) > 0
+    assert line["attempted"] == len(window) * TINY_FER["batch"]
+    assert line["failed"] == sum(window) * missing
 
 
 @pytest.mark.parametrize("fault", ["altered", "half", "unchanged"])
