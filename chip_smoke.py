@@ -36,10 +36,11 @@ Phases (each prints one line; any failure exits non-zero):
   1. build the CUDA kernels from csrc/ (one nvcc per source, in parallel)
      and the HQC-128 code (seed 0); print ptxas's registers and spills for
      each K1/K2 instance and, for the instances that HQC-128/192/256 run at
-     w = 20 and 30, the placement from the card's shared-memory limits and
-     the resident warps from the occupancy calculator: fails unless tot is
-     in shared memory, a thread has at most 64 registers and no spills, and
-     32 warps are resident per SM;
+     w = 20 and 30, the placement and the slotted warps from the card's
+     shared-memory limits and the resident warps from the occupancy
+     calculator (the staged instance where the launch stages): fails unless
+     tot is in shared memory, a thread has at most 64 registers and no
+     spills, and 32 warps are resident per SM;
   2. K2 (circulant_bp_cuda) against its plain PyTorch version on the card:
      512 frames, product-sum and min-sum, decisions and flags equal;
   3. K1 (circulant_fer_cuda) against its plain version: 512 frames at error
@@ -371,8 +372,9 @@ def main():
             for method in ("product_sum", "min_sum"):
                 occ = circulant_occupancy(n_hqc, w_hqc, method, dev)
                 # w = 20 and 30 have instances of exactly that MAXW
-                regs, spill = ptxas[(w_hqc, method, occ["placement"])]
+                regs, spill = ptxas[(w_hqc, method, occ["form"])]
                 occupancy.append(f"N={n_hqc} w={w_hqc} {method}: tot in {occ['placement']} memory, "
+                                 f"{occ['stage_warps']} warps slotted, "
                                  f"{occ['resident_blocks']} x {occ['threads']} threads = {occ['resident_warps']} "
                                  f"warps/SM, {regs} regs, {spill} B spill")
                 if occ["placement"] != "shared" or occ["resident_warps"] < 32 or regs > 64 or spill:

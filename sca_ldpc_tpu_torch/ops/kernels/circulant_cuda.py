@@ -22,9 +22,10 @@ plain version beside them for CPU tensors.  There is no fallback: a CUDA tensor 
 raises.  Each wrapper counts its kernel launches in ``.launches``.
 :func:`circulant_launch` is the first pair's launch configuration for a
 device's shared-memory limits (:func:`smem_limits`): where the variable
-totals live (shared or device memory), threads a block and the padded plane
-stride; :func:`circulant_lean_launch` is the lean pair's (how many variables
-a thread stages in shared memory); :func:`multi_circulant_launch` is K8's
+totals live (shared or device memory), threads a block, the padded plane
+stride and the warps that stage the c2v planes through shared memory;
+:func:`circulant_lean_launch` is the lean pair's (how many variables a
+thread stages in shared memory); :func:`multi_circulant_launch` is K8's
 cooperative grid for the card's resident blocks
 (:func:`multi_circulant_occupancy`).  Within :func:`multi_lib_installed`
 K8's wrapper launches another library's kernel, and within
@@ -53,6 +54,12 @@ _INT_DTYPES = (torch.bool, torch.uint8, torch.int8, torch.int16, torch.int32, to
 # K1/K2 are built with __launch_bounds__(1024, 1): at most 64 registers a
 # thread, so 1024 threads (32 warps) a SM, as one block or two.
 THREADS_SM = 1024
+# The staged form: a slotted warp's slot holds the w plane rows of its 32
+# checks (128 B each), and an 8-byte mbarrier; the slots start on a 16-byte
+# line, and two int tile counters follow them.
+STAGE_ROW_BYTES = 4 * 32
+STAGE_BARRIER_BYTES = 8
+STAGE_COUNTER_BYTES = 8
 
 
 def _round_up(x, m):
@@ -67,6 +74,8 @@ class CirculantLaunch(NamedTuple):
     blocks_per_sm: int  # blocks resident on one SM by design
     smem_bytes: int  # dynamic shared memory a block: the shifts, then tot in the shared placement
     ld: int  # c2v plane stride in floats: N rounded up to a multiple of 32
+    stage_warps: int  # the staged form: warps with a slot of the w plane rows of their tile; 0: not staged
+    stage_bytes: int  # dynamic shared memory the staged form adds after smem_bytes (0 when not staged)
 
 
 # K3/K4 are built with __launch_bounds__(512, 2): at most 64 registers a
@@ -104,7 +113,16 @@ def circulant_launch(n, w, smem_block, smem_sm):
     and live in device memory otherwise.  Two blocks of 512 threads share an
     SM when their shared memory, with what CUDA reserves for each block (the
     SM's shared memory less what one block may opt in to), fits twice, else
-    one block of 1024: 32 warps either way."""
+    one block of 1024: 32 warps either way.
+
+    The staged form (shared placement only) takes what those blocks leave of
+    the SM's shared memory, so the blocks an SM never change: from the next
+    16-byte line, a slot of w plane rows (128 B each) and an mbarrier for as
+    many warps as fit, up to all, then two tile counters; staged where at
+    least half the warps have a slot.  On an H100: HQC-128 (2 x 512 threads,
+    44,908 B left a block) all 16 warps at w = 20, 11 at w = 30; HQC-192
+    (1 x 1024, 88,916 B) all 32 at w = 20, 23 at w = 30; HQC-256 (1,772 B)
+    none."""
     n, w = int(n), int(w)
     if n < 1 or not 1 <= w <= _MAX_W:
         raise ValueError(f"need n >= 1 and w in [1, {_MAX_W}], got n={n}, w={w}")
@@ -112,8 +130,17 @@ def circulant_launch(n, w, smem_block, smem_sm):
     placement, smem = "shared", shifts_bytes + 4 * n
     if smem > smem_block:
         placement, smem = "device", shifts_bytes
-    blocks = 2 if 2 * (smem + smem_sm - smem_block) <= smem_sm else 1
-    return CirculantLaunch(placement, THREADS_SM // blocks, blocks, smem, _round_up(n, 32))
+    reserved = smem_sm - smem_block
+    blocks = 2 if 2 * (smem + reserved) <= smem_sm else 1
+    threads = THREADS_SM // blocks
+    stage_warps = stage_bytes = 0
+    if placement == "shared":
+        warps, pad, per_warp = threads // 32, -smem % 16, w * STAGE_ROW_BYTES + STAGE_BARRIER_BYTES
+        room = min(smem_block, smem_sm // blocks - reserved) - smem - pad - STAGE_COUNTER_BYTES
+        slotted = min(warps, max(room, 0) // per_warp)
+        if 2 * slotted >= warps:
+            stage_warps, stage_bytes = slotted, pad + slotted * per_warp + STAGE_COUNTER_BYTES
+    return CirculantLaunch(placement, threads, blocks, smem, _round_up(n, 32), stage_warps, stage_bytes)
 
 
 def circulant_lean_launch(w, smem_block, smem_sm):
@@ -141,30 +168,45 @@ def _lib():
 
     lib = load("circulant_bp")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.circulant_bp_decode.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, i, p, p, p, p, p, p]
+    lib.circulant_bp_decode.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, i, i, p, p, p, p, p, p]
     lib.circulant_bp_decode.restype = i
-    lib.circulant_fer_step.argtypes = [p, f, p, i, i, i, i, i, i, i, i, p, p, p, p, p, p, p, p]
+    lib.circulant_fer_step.argtypes = [p, f, p, i, i, i, i, i, i, i, i, i, p, p, p, p, p, p, p, p]
     lib.circulant_fer_step.restype = i
-    lib.circulant_bp_occupancy.argtypes = [i, i, i, i, i]
+    lib.circulant_bp_occupancy.argtypes = [i, i, i, i, i, i]
     lib.circulant_bp_occupancy.restype = i
     return lib
 
 
+def circulant_form(cfg):
+    """The K1/K2 instance a launch configuration runs: ``"staged"`` (tot and
+    the staged planes in shared memory), ``"shared"`` or ``"device"`` (where
+    tot lives, the planes in device memory)."""
+    return "staged" if cfg.stage_warps else cfg.placement
+
+
+def circulant_staged(n, w, device):
+    """Whether K1/K2 run their staged form at (n, w) on ``device``: False on
+    the CPU, where the plain versions run."""
+    device = torch.device(device)
+    return device.type == "cuda" and circulant_launch(n, w, *smem_limits(device)).stage_warps > 0
+
+
 def circulant_occupancy(n, w, method="product_sum", device="cuda"):
     """The launch configuration of (n, w) on ``device`` (a dict of
-    :func:`circulant_launch`'s fields) plus ``resident_blocks`` and
-    ``resident_warps`` per SM of its K1/K2 instance, from the occupancy
-    calculator.  Needs a CUDA device."""
+    :func:`circulant_launch`'s fields and its ``form``, :func:`circulant_form`)
+    plus ``resident_blocks`` and ``resident_warps`` per SM of its K1/K2
+    instance, from the occupancy calculator.  Needs a CUDA device."""
     if method not in _METHODS:
         raise ValueError(f"unknown bp method: {method}")
     device = torch.device(device)
     cfg = circulant_launch(n, w, *smem_limits(device))
     with torch.cuda.device(device):
         blocks = _lib().circulant_bp_occupancy(int(w), _METHODS[method], int(cfg.placement == "shared"),
-                                               cfg.threads, cfg.smem_bytes)
+                                               cfg.threads, cfg.smem_bytes + cfg.stage_bytes, cfg.stage_warps)
     if blocks < 0:
         raise RuntimeError(f"circulant_bp_occupancy failed: CUDA error {-blocks}")
-    return {**cfg._asdict(), "resident_blocks": blocks, "resident_warps": blocks * cfg.threads // 32}
+    return {**cfg._asdict(), "form": circulant_form(cfg), "resident_blocks": blocks,
+            "resident_warps": blocks * cfg.threads // 32}
 
 
 def _ptxas_report(lib_path, pattern, key):
@@ -186,13 +228,15 @@ def _ptxas_report(lib_path, pattern, key):
 
 def circulant_ptxas():
     """ptxas's ``-v`` report on every K1/K2 instance of the built library:
-    {(MAXW, method, placement): (registers, spill bytes stored and loaded)}
-    a thread.  Builds the library if needed (needs nvcc)."""
+    {(MAXW, method, form): (registers, spill bytes stored and loaded)} a
+    thread, ``form`` as :func:`circulant_form` names it.  Builds the library
+    if needed (needs nvcc)."""
     from ._build import build
 
     return _ptxas_report(
-        build("circulant_bp"), r"circulant_bp_kernelILi(\d+)ELb(\d)ELb(\d)E",
-        lambda m: (int(m[1]), "min_sum" if m[2] == "1" else "product_sum", "shared" if m[3] == "1" else "device"))
+        build("circulant_bp"), r"circulant_bp_kernelILi(\d+)ELb(\d)ELb(\d)ELb(\d)E",
+        lambda m: (int(m[1]), "min_sum" if m[2] == "1" else "product_sum",
+                   "staged" if m[4] == "1" else "shared" if m[3] == "1" else "device"))
 
 
 def _scratch(b, w, n, device):
@@ -371,7 +415,8 @@ def circulant_bp_cuda(prior_c, prior_i, syndrome, shifts, max_iter, method="min_
             rc = _lib().circulant_bp_decode(
                 prior_c.data_ptr(), prior_i.data_ptr(), syn.data_ptr(), k.data_ptr(),
                 w, n, cfg.ld, b, int(max_iter), _METHODS[method], int(bool(with_identity)),
-                cfg.threads, cfg.smem_bytes, c2v.data_ptr(), None if tot is None else tot.data_ptr(),
+                cfg.threads, cfg.smem_bytes + cfg.stage_bytes, cfg.stage_warps, c2v.data_ptr(),
+                None if tot is None else tot.data_ptr(),
                 e.data_ptr(), conv.data_ptr(), iters.data_ptr(), stream,
             )
             if rc != 0:
@@ -417,7 +462,8 @@ def circulant_fer_cuda(errors, shifts, error_rate, max_iter, method="product_sum
         if b:
             rc = _lib().circulant_fer_step(
                 err.data_ptr(), prior, k.data_ptr(), w, n, cfg.ld, b, int(max_iter), _METHODS[method],
-                cfg.threads, cfg.smem_bytes, c2v.data_ptr(), None if tot is None else tot.data_ptr(),
+                cfg.threads, cfg.smem_bytes + cfg.stage_bytes, cfg.stage_warps, c2v.data_ptr(),
+                None if tot is None else tot.data_ptr(),
                 syn.data_ptr(), e_i.data_ptr(), ok.data_ptr(), conv.data_ptr(),
                 None if iters_out is None else iters_out.data_ptr(), stream,
             )

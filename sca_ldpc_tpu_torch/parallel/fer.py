@@ -31,7 +31,10 @@ their exchange over the ranks) and ``fer.count`` (the count on the host, which
 waits for the device).  The kernel backends count ``fer.frames`` and
 ``fer.frame_iterations``: while recording they hand the kernel a [B] buffer
 for each frame's iterations and count its sum on the device; otherwise the
-launch is the one without it.  ``"decode"`` counts nothing.
+launch is the one without it.  ``"fused"`` also counts ``fer.k1_staged_frames``,
+the frames K1 decoded in its staged form (0 where its launch configuration,
+:func:`~sca_ldpc_tpu_torch.ops.kernels.circulant_cuda.circulant_launch`, does
+not stage the planes, and on the CPU).  ``"decode"`` counts nothing.
 
 The sharded step splits the batch over the mesh's ranks.  Every rank draws
 the whole ``[batch, n_vars]`` uniform tensor from its generator (seeded alike
@@ -47,7 +50,7 @@ import torch
 from ..codes.layout import CirculantLayout
 from ..ops.binary_bp import _bp_decode_syndrome
 from ..ops.circulant_bp import CirculantBPDecoder
-from ..ops.kernels.circulant_cuda import circulant_fer_cuda, circulant_fer_lean_cuda
+from ..ops.kernels.circulant_cuda import circulant_fer_cuda, circulant_fer_lean_cuda, circulant_staged
 from ..sim.fer import _syndromes
 from ..utils import spans
 
@@ -125,6 +128,7 @@ def make_fer_step(layout, channel_probs, device, max_iter=50, method="product_su
         if not np.allclose(probs, err):
             raise ValueError(f"FER backend {backend!r} supports one uniform error rate over all variables")
         fer_kernel = _KERNELS[backend]
+        staged = backend == "fused" and circulant_staged(layout.n, len(layout.shifts), device)
 
         def sample(u):
             return (u < err).to(torch.uint8)
@@ -136,6 +140,8 @@ def make_fer_step(layout, channel_probs, device, max_iter=50, method="product_su
                     ok, conv = fer_kernel(errors, layout.shifts, err, max_iter, method, iters_out=iters)
                     spans.count("fer.frames", errors.shape[0])
                     spans.count("fer.frame_iterations", iters.sum())
+                    if backend == "fused":
+                        spans.count("fer.k1_staged_frames", errors.shape[0] if staged else 0)
                 else:
                     ok, conv = fer_kernel(errors, layout.shifts, err, max_iter, method)
             with spans.span("fer.reduce"):

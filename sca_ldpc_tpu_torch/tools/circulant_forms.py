@@ -1,11 +1,14 @@
-"""Time the port's circulant kernels against their forms before the Hopper
-redesigns, on one NVIDIA GPU, in one process: K1 (``circulant_bp.cu``'s FER
-step), the lean kernel K3/K4 (``circulant_lean.cu``'s decode and FER step) and
-K8 (``circulant_multi.cu``, the HQC attack's masked decode).
+"""Time the port's circulant kernels against their earlier forms, on one
+NVIDIA GPU, in one process: K1 (``circulant_bp.cu``'s FER step, against its
+form before the planes were staged through shared memory), the lean kernel
+K3/K4 (``circulant_lean.cu``'s decode and FER step) and K8
+(``circulant_multi.cu``, the HQC attack's masked decode), against their forms
+before the Hopper redesigns.
 
 The earlier sources are ``sca_ldpc_tpu_torch/csrc/circulant_bp.cu`` as of commit
-7f3dcaf, whose ``circulant_fer_step`` takes ``c2v [B, w, N]`` and ``tot [B, N]``
-and no launch configuration, and ``sca_ldpc_tpu_torch/csrc/circulant_lean.cu`` as
+503e714 (the unstaged form: the launch configuration's placement, threads,
+shared memory and plane stride, no slots), and
+``sca_ldpc_tpu_torch/csrc/circulant_lean.cu`` as
 of commit cef7e57, whose entry points take two plane arrays ``v2c`` and ``c2v
 [B, w, N]``, ``acc_phi``, ``acc_neg`` and ``tot [B, N]`` and no launch
 configuration; this script binds those interfaces.  Write them into the
@@ -13,7 +16,7 @@ git-ignored ``build/`` from a checkout with history, then run the script (the
 card's machine needs no git):
 
     mkdir -p build/k1_old build/lean_old build/k8_old
-    git show 7f3dcaf:sca_ldpc_tpu_torch/csrc/circulant_bp.cu > build/k1_old/circulant_bp.cu
+    git show 503e714:sca_ldpc_tpu_torch/csrc/circulant_bp.cu > build/k1_old/circulant_bp.cu
     git show cef7e57:sca_ldpc_tpu_torch/csrc/circulant_lean.cu > build/lean_old/circulant_lean.cu
     git show 46cf7a6:sca_ldpc_tpu_torch/csrc/circulant_multi.cu > build/k8_old/circulant_multi.cu
     python3 -m sca_ldpc_tpu_torch.tools.circulant_forms --out build/k1_forms.json
@@ -25,11 +28,13 @@ K1 and the lean kernel, ``all`` the three.
 K1, for each cell (HQC-128 at batch 4096 and 512, HQC-192 and HQC-256 at batch
 2048; error rate 0.01, product-sum, up to 30 iterations, errors sampled on the
 card from a fixed seed): checks that both forms give the same success and
-convergence flags, times a step of each in turns (old, new, new, old; CUDA
-events, best of 3 after a warm-up), records each one's peak device memory, and
-sweeps max_iter over 0-3 (set-up, first and later iterations).  The bound of
-each step comes from the frames' own iteration counts (``circulant_bp_cuda`` on
-the same frames), less the first, and ``ops/kernels/bounds.py``.
+convergence flags and per-frame iteration counts (at HQC-256, where the launch
+stages nothing, the two forms run the same code), times a step of each in
+turns (old, new, new, old; CUDA events, best of 3 after a warm-up), records
+each one's peak device memory, and sweeps max_iter over 0-3 (set-up, first
+and later iterations).  The bound of each step comes from the frames' own
+iteration counts (the step's ``iters_out``), less the first, and
+``ops/kernels/bounds.py``.
 
 The lean kernel, for the three FER cells (HQC-128 at batch 4096, HQC-192 and
 HQC-256 at 2048, rate 0.01, up to 30 iterations) and for 8192 hard HQC-128
@@ -82,14 +87,16 @@ from ..codes import CirculantLayout, random_circulant_first_row
 from ..ops.kernels import _build, circulant_cuda
 from ..ops.kernels.bounds import circulant_bound_ms, multi_circulant_bound_ms
 from ..ops.kernels.circulant_cuda import (
-    circulant_bp_cuda,
     circulant_bp_lean_cuda,
     circulant_fer_cuda,
     circulant_fer_lean_cuda,
+    circulant_form,
+    circulant_launch,
     multi_circulant_bp_cuda,
     multi_circulant_bp_plain,
     multi_circulant_launch,
     multi_circulant_occupancy,
+    smem_limits,
 )
 from ..utils import make_random_state
 from . import attack_cells, k8_variants
@@ -124,7 +131,7 @@ def _build_old(src):
     """K1's earlier form; returns (lib, ptxas log)."""
     lib, log = _compile_old(src, "circulant_bp")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.circulant_fer_step.argtypes = [p, f, p, i, i, i, i, i, p, p, p, p, p, p, p]
+    lib.circulant_fer_step.argtypes = [p, f, p, i, i, i, i, i, i, i, i, p, p, p, p, p, p, p, p]
     lib.circulant_fer_step.restype = i
     return lib, log
 
@@ -203,20 +210,24 @@ def _old_lean_bp(lib, prior_c, prior_i, syndrome, shifts, max_iter):
     return e.to(torch.int32), conv.bool(), iters
 
 
-def _old_fer(lib, errors, shifts, rate, max_iter):
-    """The earlier form's FER step (its own wrapper, product-sum)."""
+def _old_fer(lib, errors, shifts, rate, max_iter, iters_out=None):
+    """The earlier form's FER step (its own wrapper, product-sum), at the
+    current launch configuration less the staged slots."""
     b, n2 = errors.shape
     n, w, dev = n2 // 2, len(shifts), errors.device
+    cfg = circulant_launch(n, w, *smem_limits(dev))
     k = torch.tensor(shifts, dtype=torch.int32, device=dev)
-    c2v = torch.empty((b, w, n), dtype=torch.float32, device=dev)
-    tot = torch.empty((b, n), dtype=torch.float32, device=dev)
+    c2v = torch.empty((b, w, cfg.ld), dtype=torch.float32, device=dev)
+    tot = torch.empty((b, n), dtype=torch.float32, device=dev) if cfg.placement == "device" else None
     syn = torch.empty((b, n), dtype=torch.uint8, device=dev)
-    e = torch.empty((b, 2 * n), dtype=torch.uint8, device=dev)
+    e_i = torch.empty((b, n), dtype=torch.uint8, device=dev)
     ok = torch.empty((b,), dtype=torch.uint8, device=dev)
     conv = torch.empty((b,), dtype=torch.uint8, device=dev)
-    rc = lib.circulant_fer_step(errors.data_ptr(), float(np.log((1 - rate) / rate)), k.data_ptr(), w, n, b,
-                                int(max_iter), 0, c2v.data_ptr(), tot.data_ptr(), syn.data_ptr(), e.data_ptr(),
-                                ok.data_ptr(), conv.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    rc = lib.circulant_fer_step(errors.data_ptr(), float(np.log((1 - rate) / rate)), k.data_ptr(), w, n, cfg.ld, b,
+                                int(max_iter), 0, cfg.threads, cfg.smem_bytes, c2v.data_ptr(),
+                                None if tot is None else tot.data_ptr(), syn.data_ptr(), e_i.data_ptr(),
+                                ok.data_ptr(), conv.data_ptr(), None if iters_out is None else iters_out.data_ptr(),
+                                torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"old circulant_fer_step failed: CUDA error {rc}")
     return ok.bool(), conv.bool()
@@ -427,16 +438,16 @@ def _k1_cells(old_lib, codes, dev, card):
         def old(max_iter=MAX_ITER):
             return _old_fer(old_lib, errors, lay.shifts, RATE, max_iter)
 
-        ok_n, conv_n = new()
-        ok_o, conv_o = old()
-        same = torch.equal(ok_n, ok_o) and torch.equal(conv_n, conv_o)
-        syn = (sum(torch.roll(errors[:, :n].int(), k, dims=-1) for k in lay.shifts) + errors[:, n:]) % 2
-        prior = torch.full((batch, n), float(np.log((1 - RATE) / RATE)), dtype=torch.float32, device=dev)
-        iters = int(circulant_bp_cuda(prior, prior, syn, lay.shifts, MAX_ITER, "product_sum")[2].sum())
+        it_n, it_o = (torch.empty((batch,), dtype=torch.int32, device=dev) for _ in range(2))
+        ok_n, conv_n = circulant_fer_cuda(errors, lay.shifts, RATE, MAX_ITER, iters_out=it_n)
+        ok_o, conv_o = _old_fer(old_lib, errors, lay.shifts, RATE, MAX_ITER, iters_out=it_o)
+        same = torch.equal(ok_n, ok_o) and torch.equal(conv_n, conv_o) and torch.equal(it_n, it_o)
+        iters = int(it_n.sum())
         # the first iteration needs no phi a message under the step's one constant prior
         bound, bound_by = circulant_bound_ms(iters - batch, w, n, batch * 2 * n + 2 * batch)
         turns, t_old, t_new = _turns(old, new)
-        cell = {"cell": name, "kernel": "K1", "n": n, "w": w, "batch": batch, "flags_equal": same,
+        form = circulant_form(circulant_launch(n, w, *smem_limits(dev)))
+        cell = {"cell": name, "kernel": "K1", "n": n, "w": w, "batch": batch, "form": form, "flags_equal": same,
                 "successes": int(ok_n.sum()), "iterations_per_frame": iters / batch,
                 "turns_ms": turns, "old_ms": t_old, "new_ms": t_new, "speedup": t_old / t_new,
                 "bound_ms": bound, "bound_by": bound_by, "new_share_of_bound": bound / t_new,
@@ -445,7 +456,8 @@ def _k1_cells(old_lib, codes, dev, card):
         if batch == max(c[3] for c in CELLS if c[1] == n):
             cell["sweep"] = {"old": _sweep(old), "new": _sweep(new)}
         cells.append(cell)
-        print(f"K1 {name} batch {batch}: flags equal {same}, successes {cell['successes']}/{batch}, "
+        print(f"K1 {name} batch {batch} ({form}): flags and iterations equal {same}, "
+              f"successes {cell['successes']}/{batch}, "
               f"{cell['iterations_per_frame']:.3f} iterations a frame; old {t_old:.3f} ms, new {t_new:.3f} ms "
               f"({cell['speedup']:.2f}x); bound {bound:.3f} ms ({bound_by}), new at {100 * bound / t_new:.1f}% "
               f"of it; peak {cell['peak_gb_old']:.2f} / {cell['peak_gb_new']:.2f} GB [{card}]")

@@ -79,6 +79,51 @@ def test_placement_follows_the_device_limits():
     assert circulant_launch(57637, 30, *H100).placement == "shared"
 
 
+@pytest.mark.parametrize("name, w, slotted, budget", [("HQC-128", 20, 16, 44_908), ("HQC-128", 30, 11, 44_908),
+                                                     ("HQC-192", 30, 23, 88_916), ("HQC-192", 20, 32, 88_916)])
+def test_hqc128_and_hqc192_stage_the_planes_within_their_budget(name, w, slotted, budget):
+    """What two blocks of 512 (HQC-128) or one of 1024 (HQC-192) leave of an
+    SM's shared memory beside their totals holds, from the next 16-byte line,
+    a slot of a tile's w plane rows (128 B each) and an 8-byte mbarrier for
+    each slotted warp, then two tile counters: every warp at w = 20, 11 of 16
+    and 23 of 32 at w = 30.  The blocks an SM and smem_bytes are those of the
+    unstaged form."""
+    n = HQC[name]
+    cfg = circulant_launch(n, w, *H100)
+    assert (cfg.placement, cfg.stage_warps) == ("shared", slotted) and 2 * slotted >= cfg.threads // 32
+    assert cfg.smem_bytes == 4 * 32 + 4 * n
+    assert (cfg.blocks_per_sm, cfg.threads) == ((2, 512) if name == "HQC-128" else (1, 1024))
+    assert budget == SMEM_SM // cfg.blocks_per_sm - 1024 - cfg.smem_bytes
+    assert cfg.stage_bytes == -cfg.smem_bytes % 16 + slotted * (128 * w + 8) + 8 <= budget
+    assert budget - cfg.stage_bytes < 128 * w + 8 or slotted == cfg.threads // 32  # no room for one more slot
+    assert cfg.smem_bytes + cfg.stage_bytes <= SMEM_BLOCK
+    assert cfg.blocks_per_sm * (cfg.smem_bytes + cfg.stage_bytes + 1024) <= SMEM_SM
+    # a tile's rows [32 k, 32 k + 32) stay inside a plane row of ld floats
+    assert cfg.ld == 32 * -(-n // 32)
+
+
+@pytest.mark.parametrize("n,w", [(57637, 30), (57637, 20), (58080, 30), (58081, 30), (65003, 4)])
+def test_hqc256_and_the_device_placement_keep_the_planes_in_device_memory(n, w):
+    """HQC-256's totals leave 1,772 B a block, less than one warp's slot; tot
+    in device memory takes the unstaged form whatever is free."""
+    cfg = circulant_launch(n, w, *H100)
+    assert (cfg.stage_warps, cfg.stage_bytes) == (0, 0)
+    if n == 57637:
+        assert cfg.placement == "shared" and SMEM_BLOCK - cfg.smem_bytes == 1_772
+
+
+def test_staging_follows_the_device_limits():
+    """On an A100's limits (166,912 B a block, 167,936 an SM) HQC-128 and
+    HQC-192 keep tot in shared memory but leave room for the slots of 4 of 16
+    and 6 of 32 warps, under half: not staged; on an H100 both are."""
+    a100 = (166_912, 167_936)
+    for n, w in ((17669, 20), (35851, 30)):
+        cfg = circulant_launch(n, w, *a100)
+        assert cfg.placement == "shared" and (cfg.stage_warps, cfg.stage_bytes) == (0, 0)
+        assert circulant_launch(n, w, *H100).stage_warps > 0
+    assert circulant_launch(57637, 30, *a100).stage_warps == 0
+
+
 def test_launch_config_rejects_bad_sizes():
     for n, w in ((0, 4), (128, 0), (128, 65)):
         with pytest.raises(ValueError):

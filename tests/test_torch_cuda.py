@@ -10,6 +10,7 @@ import pytest
 import torch
 
 from sca_ldpc_tpu_torch.codes import CirculantLayout, random_circulant_first_row
+from sca_ldpc_tpu_torch.ops.kernels import circulant_cuda
 from sca_ldpc_tpu_torch.ops.kernels.circulant_cuda import (
     circulant_bp_cuda,
     circulant_bp_plain,
@@ -194,6 +195,139 @@ def test_instances_keep_32_warps_without_spills(cuda, n, w, method):
     SM (the occupancy calculator)."""
     occ = circulant_occupancy(n, w, method, cuda)
     assert occ["placement"] == "shared"
-    regs, spill = circulant_ptxas()[(w, method, "shared")]
+    assert occ["form"] == ("shared" if n == 57637 else "staged")
+    regs, spill = circulant_ptxas()[(w, method, occ["form"])]
     assert regs <= 64 and spill == 0, (regs, spill)
     assert occ["resident_warps"] >= 32, occ
+
+
+def test_no_instance_spills(cuda):
+    """Every staged K1/K2 instance, and every instance of the HQC weights 20
+    and 30: 64 registers or fewer (the 1024-thread launch bound) and no
+    spills.  (The unstaged buckets of 32 and 64 hold up to 32 and 64
+    magnitudes in registers and spill, as they did before staging.)"""
+    rep = circulant_ptxas()
+    assert len(rep) == 6 * 2 * 3, sorted(rep)
+    assert {form for *_, form in rep} == {"device", "shared", "staged"}
+    bad = {k: v for k, v in rep.items() if (k[2] == "staged" or k[0] in (20, 30)) and (v[0] > 64 or v[1])}
+    assert not bad, bad
+
+
+# ---- the staged form against the unstaged one and the plain version
+
+
+def _near_n_layout(n, w):
+    """A code whose shifts include N - 1 and N - 2: nearly every variable's
+    span (j + k_t) mod N wraps."""
+    shifts = list(_layout(n, w).shifts)
+    shifts[:2] = [n - 1, n - 2]
+    assert len(set(shifts)) == w
+    return CirculantLayout(n=n, shifts=tuple(shifts), with_identity=True)
+
+
+def _mixed_errors(n, b, seed):
+    """[B, 2N] error bits from none (one iteration) through a few (2-3) to
+    hundreds and thousands (every one of max_iter iterations)."""
+    rng = np.random.RandomState(seed)
+    counts = [0, 1, 3, 8, 20, 40, 300, 3000][:b] + [int(x) for x in rng.randint(0, 60, max(b - 8, 0))]
+    err = np.zeros((b, 2 * n), np.uint8)
+    for f, c in enumerate(counts):
+        err[f, rng.choice(2 * n, c, replace=False)] = 1
+    return err
+
+
+def _direct(cuda, kind, staged, lay, max_iter, method, err=None, rate=None, pc=None, pi=None, syn=None):
+    """K1 (kind "fer") or K2 ("bp") through the library at (N, w)'s launch,
+    staged or through the unstaged shared-placement instance of the same
+    shape: the outputs and the c2v planes [B, w, N] the decode left."""
+    n, w = lay.n, len(lay.shifts)
+    cfg = circulant_launch(n, w, *smem_limits(cuda))
+    assert cfg.placement == "shared" and cfg.stage_warps > 0
+    smem, slotted = (cfg.smem_bytes + cfg.stage_bytes, cfg.stage_warps) if staged else (cfg.smem_bytes, 0)
+    b = (err if kind == "fer" else pc).shape[0]
+    k = torch.tensor(lay.shifts, dtype=torch.int32, device=cuda)
+    c2v = torch.full((b, w, cfg.ld), float("nan"), dtype=torch.float32, device=cuda)
+    conv = torch.empty((b,), dtype=torch.uint8, device=cuda)
+    iters = torch.empty((b,), dtype=torch.int32, device=cuda)
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    lib = circulant_cuda._lib()
+    if kind == "fer":
+        syn_s, e_i = (torch.empty((b, n), dtype=torch.uint8, device=cuda) for _ in range(2))
+        ok = torch.empty((b,), dtype=torch.uint8, device=cuda)
+        rc = lib.circulant_fer_step(err.data_ptr(), float(np.log((1 - rate) / rate)), k.data_ptr(), w, n, cfg.ld, b,
+                                    max_iter, circulant_cuda._METHODS[method], cfg.threads, smem, slotted,
+                                    c2v.data_ptr(), None, syn_s.data_ptr(), e_i.data_ptr(), ok.data_ptr(),
+                                    conv.data_ptr(), iters.data_ptr(), stream)
+        out = (ok.bool(), e_i)
+    else:
+        s = syn.to(torch.uint8).contiguous()
+        e = torch.empty((b, 2 * n), dtype=torch.uint8, device=cuda)
+        rc = lib.circulant_bp_decode(pc.data_ptr(), pi.data_ptr(), s.data_ptr(), k.data_ptr(), w, n, cfg.ld, b,
+                                     max_iter, circulant_cuda._METHODS[method], 1, cfg.threads, smem, slotted,
+                                     c2v.data_ptr(), None, e.data_ptr(), conv.data_ptr(), iters.data_ptr(), stream)
+        out = (e.int(),)
+    assert rc == 0, rc
+    torch.cuda.synchronize()
+    return (*out, conv.bool(), iters, c2v[:, :, :n])
+
+
+@pytest.mark.parametrize("method", METHODS)
+@pytest.mark.parametrize("n,w,b", [(17669, 20, 12), (17669, 30, 8), (35851, 30, 10)])
+def test_staged_form_is_bit_equal(cuda, n, w, b, method):
+    """HQC-128 (2 x 512 threads; every warp slotted at w = 20, 11 of 16 at w =
+    30) and HQC-192 (1 x 1024, 23 of 32 slotted): the staged K1 and K2 equal
+    the unstaged instance of the same shape bit for bit, outputs and the c2v
+    planes alike, and the plain version frame for frame (product-sum's plain
+    sum may run in another order: at most one frame apart).  Frames leave
+    after 1 to 3 iterations or run all 20; N is no multiple of the 32-check
+    tile, and two shifts lie next to N."""
+    lay = _near_n_layout(n, w)
+    max_iter = 20
+    err_np = _mixed_errors(n, b, n + w)
+    err = torch.from_numpy(err_np).to(cuda)
+    rate = 0.002
+    ok, e_i, conv, iters, planes = _direct(cuda, "fer", True, lay, max_iter, method, err=err, rate=rate)
+    ref = _direct(cuda, "fer", False, lay, max_iter, method, err=err, rate=rate)
+    assert all(torch.equal(x, y) for x, y in zip((ok, e_i, conv, iters), ref[:4]))
+    assert torch.equal(planes.view(torch.int32), ref[4].view(torch.int32))
+    assert {1, max_iter} <= set(iters.tolist()) and min(iters.tolist()) <= 3 < max(iters.tolist())
+    before = circulant_fer_cuda.launches
+    iters_w = torch.empty((b,), dtype=torch.int32, device=cuda)
+    ok_w, conv_w = circulant_fer_cuda(err, lay.shifts, rate, max_iter, method, iters_out=iters_w)
+    assert circulant_fer_cuda.launches == before + 1
+    assert torch.equal(ok_w, ok) and torch.equal(conv_w, conv) and torch.equal(iters_w, iters)
+    iters_p = torch.empty((b,), dtype=torch.int32, device=cuda)
+    ok_p, conv_p = circulant_fer_plain(err, lay.shifts, rate, max_iter, method, iters_out=iters_p)
+    mismatch = (ok != ok_p) | (conv != conv_p) | (iters != iters_p)
+    assert int(mismatch.sum()) <= (0 if method == "min_sum" else 1)
+
+    # K2: per-position priors, the syndromes of the same frames
+    _, pc, pi, _ = _inputs(lay, b, rate, 7, cuda)
+    e_c = err[:, :n].int()
+    syn = (sum(torch.roll(e_c, k, dims=-1) for k in lay.shifts) + err[:, n:].int()) % 2
+    got = _direct(cuda, "bp", True, lay, max_iter, method, pc=pc, pi=pi, syn=syn)
+    ref = _direct(cuda, "bp", False, lay, max_iter, method, pc=pc, pi=pi, syn=syn)
+    assert all(torch.equal(x, y) for x, y in zip(got[:3], ref[:3]))
+    assert torch.equal(got[3].view(torch.int32), ref[3].view(torch.int32))
+    assert 1 in got[2].tolist() and max_iter in got[2].tolist()
+    wrapped = circulant_bp_cuda(pc, pi, syn, lay.shifts, max_iter, method)
+    assert all(torch.equal(x, y) for x, y in zip(wrapped, got[:3]))
+    _agree(got[:3], circulant_bp_plain(pc, pi, syn, lay.shifts, max_iter, method), method)
+
+
+@pytest.mark.parametrize("method", METHODS)
+def test_hqc256_keeps_the_unstaged_form(cuda, method):
+    """HQC-256's totals fill shared memory: its launch stages nothing and the
+    kernel equals the plain version as before."""
+    n, w = 57637, 30
+    cfg = circulant_launch(n, w, *smem_limits(cuda))
+    assert (cfg.placement, cfg.stage_warps, cfg.stage_bytes) == ("shared", 0, 0)
+    assert not circulant_cuda.circulant_staged(n, w, cuda)
+    lay = _near_n_layout(n, w)
+    err = torch.from_numpy(_mixed_errors(n, 6, 3)).to(cuda)
+    iters = torch.empty((6,), dtype=torch.int32, device=cuda)
+    ok, conv = circulant_fer_cuda(err, lay.shifts, 0.002, 20, method, iters_out=iters)
+    iters_p = torch.empty((6,), dtype=torch.int32, device=cuda)
+    ok_p, conv_p = circulant_fer_plain(err, lay.shifts, 0.002, 20, method, iters_out=iters_p)
+    mismatch = (ok != ok_p) | (conv != conv_p) | (iters != iters_p)
+    assert int(mismatch.sum()) <= (0 if method == "min_sum" else 1)

@@ -18,6 +18,7 @@ from sca_ldpc_tpu_torch.ops.kernels.circulant_cuda import (
     circulant_bp_lean_plain,
     circulant_fer_cuda,
     circulant_fer_lean_cuda,
+    circulant_staged,
 )
 from sca_ldpc_tpu_torch.parallel.fer import fer_simulation
 from sca_ldpc_tpu_torch.utils import spans
@@ -60,7 +61,9 @@ def test_counted_iterations_equal_the_plain_versions(cuda, backend):
     kernel(errors, lay.shifts, float(rate), max_iter, iters_out=iters)
     assert torch.equal(iters, plain.to(torch.int32))
     assert 1 <= int(plain.min()) < int(plain.max()) == max_iter
-    assert counted == {"fer.frames": frames, "fer.frame_iterations": int(plain.sum())}
+    # "fused" counts the frames K1 ran staged: all of them where the card stages HQC-128 (an H100 does)
+    staged = {"fer.k1_staged_frames": frames * circulant_staged(lay.n, 20, cuda)} if backend == "fused" else {}
+    assert counted == {"fer.frames": frames, "fer.frame_iterations": int(plain.sum()), **staged}
 
 
 def test_counting_a_device_sum_does_not_sync(cuda):
