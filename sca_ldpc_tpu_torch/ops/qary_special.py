@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from ..channels.llr import probs_to_llr
+from ..utils import spans
 from . import minplus
 from .minplus import BIG
 from .qary import BACKENDS, _signed, default_backend
@@ -255,21 +256,25 @@ class QarySpecialDecoder:
         self._sum_var = torch.as_tensor(sum_var, dtype=torch.int64, device=self.device)
 
     def _decode_llr(self, llr_b, llr_s_row):
+        """The decode of clipped channels (sum variables in row order); the
+        span ``kyber.decode`` (``utils/spans.py``) around it, K7's wrapper
+        and its adjacency check included."""
         bvar_idx, bvar_sign, bvar_mask, var_flat, var_sign, var_mask, sum_sign, row_of_sum = self._args
-        if self.backend == "fused":
-            from .kernels.qary_cuda import qary_special_min_sum_fused_cuda
+        with spans.span("kyber.decode"):
+            if self.backend == "fused":
+                from .kernels.qary_cuda import qary_special_min_sum_fused_cuda
 
-            vsum = _signed(llr_s_row, sum_sign).contiguous()
-            hard_b, hard_s_row = qary_special_min_sum_fused_cuda(
-                llr_b, llr_s_row, vsum, bvar_idx, bvar_sign, bvar_mask, var_flat, sum_sign,
-                self.b, self.bsum, self.max_iter,
-            )
-        else:
-            hard_b, hard_s_row = _special_min_sum(
-                *self._args[:7], llr_b, llr_s_row, self.max_iter, self.b, self.bsum,
-                backend=self.backend, early_exit=self.early_exit,
-            )
-        return torch.cat([hard_b, hard_s_row.index_select(1, row_of_sum.long())], dim=1)
+                vsum = _signed(llr_s_row, sum_sign).contiguous()
+                hard_b, hard_s_row = qary_special_min_sum_fused_cuda(
+                    llr_b, llr_s_row, vsum, bvar_idx, bvar_sign, bvar_mask, var_flat, sum_sign,
+                    self.b, self.bsum, self.max_iter,
+                )
+            else:
+                hard_b, hard_s_row = _special_min_sum(
+                    *self._args[:7], llr_b, llr_s_row, self.max_iter, self.b, self.bsum,
+                    backend=self.backend, early_exit=self.early_exit,
+                )
+            return torch.cat([hard_b, hard_s_row.index_select(1, row_of_sum.long())], dim=1)
 
     def min_sum_llr(self, channel_llr, channel_llr_sum):
         """Decode min-sum LLRs (inf allowed; clipped internally):

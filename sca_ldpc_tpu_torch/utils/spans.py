@@ -26,7 +26,8 @@ once.  A tensor counter is summed on its device and read (one sync) only by
 :func:`snapshot`.
 
 Spans: ``fer.*`` in ``parallel/fer.py``, ``attack.*`` in
-``models/hqc/attack.py`` (PERF.md names each with what reads it).
+``models/hqc/attack.py``, ``kyber.*`` in ``parallel/kyber.py`` and
+``ops/qary_special.py`` (PERF.md names each with what reads it).
 """
 
 import contextlib
